@@ -1,0 +1,44 @@
+"""The port's numpy-only sequence generators give exactly the arrays of
+scripts/make_golden.py (same seeds, same draws, same pose formulas)."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+from tpu3dtk_torch import synth
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+import make_golden  # noqa: E402
+
+
+@pytest.mark.parametrize(
+    "name,kw",
+    [
+        ("synth_loop", dict(n_scans=5, n_pts=500, seed=7)),
+        ("synth_ring", dict(n_scans=3, n_pts=400, seed=11)),
+    ],
+)
+def test_synth_equals_make_golden(name, kw):
+    got = getattr(synth, name)(**kw)
+    want = getattr(make_golden, name)(**kw)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == kw["n_scans"]
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_write_scan_dir_roundtrip(tmp_path):
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io.scandir import read_scan_dir
+
+    locs, _true, odo = synth.synth_loop(n_scans=2, n_pts=300, seed=1)
+    synth.write_scan_dir(str(tmp_path), locs, odo)
+    raws = list(read_scan_dir(str(tmp_path), format="uos"))
+    assert [r.identifier for r in raws] == ["000", "001"]
+    for raw, loc, To in zip(raws, locs, odo):
+        np.testing.assert_allclose(raw.xyz, loc, atol=1e-5)
+        np.testing.assert_allclose(Scan.from_raw(raw).transMatOrg, To, atol=1e-9)

@@ -1,0 +1,85 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel library is compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``) into ``build/tpu3dtk_torch/`` under the repository root,
+keyed by a hash of its ``.cu`` sources, and loaded with ``ctypes``.  The
+sources expose plain C entry points, so the build does not include
+PyTorch's headers and takes seconds.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "find_nvcc", "load_library"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "tpu3dtk_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+# nvcc's output (register and shared-memory use) of each library built
+# in this process, by library name
+build_logs: dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    """nvcc from PyTorch's CUDA_HOME, else from PATH; raises if absent."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.isfile(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (neither CUDA_HOME/bin/nvcc nor PATH): the "
+            "CUDA kernels cannot be built"
+        )
+    return found
+
+
+def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
+    """Compile ``sources`` (file names under csrc/) into lib<name>-<hash>.so
+    unless that file exists, then load it once per process."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    paths = [CSRC_DIR / s for s in sources]
+    digest = hashlib.sha256()
+    for p in paths:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_logs[name] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) building {name}:\n"
+                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _loaded[name] = lib
+        return lib

@@ -1,0 +1,195 @@
+"""Synthetic scan sequences — numpy-only copies of ``synth_loop`` and
+``synth_ring`` from ``scripts/make_golden.py`` (which imports the JAX
+package).  With the same arguments they return the same arrays: the
+random draws are identical and the pose math is the port's numpy
+``math3d``, the same formulas.
+
+- :func:`synth_loop`: a 60-scan loop through a pillared hall.
+- :func:`synth_ring`: the h468 regime, 468 scans of 16384 points on a
+  ring corridor traversed 1.3 times.
+
+Each returns (locals [n][n_pts,3] f32, true_mats, odo_mats).
+:func:`write_scan_dir` stores such a sequence as a uos scan directory.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .core import math3d
+from .io.writer import write_pose, write_uos
+
+__all__ = ["synth_loop", "synth_ring", "write_scan_dir"]
+
+
+def write_scan_dir(directory: str, locals_, poses) -> list[str]:
+    """Write ``scanNNN.3d`` (local points) and ``scanNNN.pose`` (the
+    given 4x4 poses as position + Euler degrees) for each scan, the uos
+    layout ``-f uos`` reads.  Returns the identifiers."""
+    os.makedirs(directory, exist_ok=True)
+    idents = []
+    for k, (pts, T) in enumerate(zip(locals_, poses)):
+        ident = f"{k:03d}"
+        write_uos(os.path.join(directory, f"scan{ident}.3d"), pts)
+        theta, pos = math3d.matrix4_to_euler(np.asarray(T, np.float64))
+        write_pose(os.path.join(directory, f"scan{ident}.pose"), pos, theta)
+        idents.append(ident)
+    return idents
+
+
+def synth_loop(n_scans=60, seed=7, n_pts=6000, density=1.0):
+    """Deterministic synthetic loop: a room-scape sampled from poses on
+    a closed circuit, odometry poses perturbed with drift-like noise.
+    Returns (locals, true_mats, odo_mats).  ``n_pts``: points per scan
+    sample; ``density``: environment point multiplier (raise together
+    to simulate denser sensors for the 16k-point bench variant)."""
+    rng = np.random.default_rng(seed)
+    # environment: walls of a big hall + pillars (well-constrained)
+    walls = []
+    size = 4000.0
+    n_face = int(9000 * density)
+    for axis in range(3):
+        for side in (0.0, size):
+            p = rng.uniform(0, size, (n_face, 3))
+            p[:, axis] = side
+            walls.append(p)
+    for _ in range(14):  # pillars
+        c = rng.uniform(500, size - 500, 2)
+        n_pillar = int(800 * density)
+        ang = rng.uniform(0, 2 * np.pi, n_pillar)
+        r = 60.0
+        pts = np.stack(
+            [c[0] + r * np.cos(ang), rng.uniform(0, size, n_pillar),
+             c[1] + r * np.sin(ang)],
+            axis=1,
+        )
+        walls.append(pts)
+    env = np.concatenate(walls)
+
+    true_mats, odo_mats, locals_ = [], [], []
+    drift = np.zeros(3)
+    for k in range(n_scans):
+        ang = 2 * np.pi * k / n_scans
+        center = np.array(
+            [size / 2 + 1200 * np.cos(ang), size / 2, size / 2 + 1200 * np.sin(ang)]
+        )
+        theta = np.array([0.0, -ang, 0.0])
+        T = np.asarray(math3d.euler_to_matrix4(center, theta, xp=np))
+        true_mats.append(T)
+        # simulated scan: environment points within range, in local frame
+        d2 = ((env - center) ** 2).sum(1)
+        vis = env[d2 < 1500.0**2]
+        vis = vis[rng.permutation(len(vis))[:n_pts]]
+        Ti = np.linalg.inv(T)
+        local = vis @ Ti[:3, :3].T + Ti[:3, 3]
+        local += rng.normal(0, 1.0, local.shape)  # 1 cm sensor noise
+        locals_.append(local.astype(np.float32))
+        # odometry: true pose + accumulating drift
+        drift += rng.normal(0, 6.0, 3)
+        To = T.copy()
+        To[:3, 3] += drift
+        odo_mats.append(To)
+    return locals_, true_mats, odo_mats
+
+
+def synth_ring(n_scans=468, n_pts=16384, radius=4500.0, half_width=300.0,
+               half_height=600.0, laps=1.3, drift=2.0, seed=11):
+    """The hannover2 regime: a ring CORRIDOR (two cylindrical walls +
+    floor + ceiling + pillars) traversed for ``laps`` laps, so the
+    second lap continuously re-visits the first — the -L 4 continuous
+    loop-closure schedule of the reference (README.md hannover2 config).
+    Unlike :func:`synth_loop`, the geometry scales with n_scans: scan
+    spacing stays sensor-realistic (~laps·2πR/n cm) instead of shrinking
+    to nothing.  Returns (locals [n][n_pts,3] f32, true_mats, odo_mats).
+    """
+    rng = np.random.default_rng(seed)
+    cy = 0.0
+    # corridor surface sampling: area-weighted among inner wall, outer
+    # wall, floor, ceiling; ~1.2M points for a 45 m ring
+    n_env = 1_200_000
+    phi = rng.uniform(0, 2 * np.pi, n_env)
+    kind = rng.integers(0, 4, n_env)
+    r = np.where(
+        kind == 0, radius - half_width,
+        np.where(kind == 1, radius + half_width,
+                 rng.uniform(radius - half_width, radius + half_width, n_env)),
+    )
+    y = np.where(
+        kind == 2, cy - half_height,
+        np.where(kind == 3, cy + half_height,
+                 rng.uniform(cy - half_height, cy + half_height, n_env)),
+    )
+    env = np.stack([r * np.cos(phi), y, r * np.sin(phi)], axis=1)
+    # pillars along the ring every ~15 degrees
+    extra = [env]
+    for a in np.arange(0, 2 * np.pi, np.pi / 12):
+        n_p = 3000
+        ang = rng.uniform(0, 2 * np.pi, n_p)
+        pr = 40.0
+        c = np.array([radius * np.cos(a), 0.0, radius * np.sin(a)])
+        extra.append(np.stack(
+            [c[0] + pr * np.cos(ang),
+             rng.uniform(cy - half_height, cy + half_height, n_p),
+             c[2] + pr * np.sin(ang)], axis=1,
+        ))
+    # clutter boxes on the corridor floor: the asymmetric structure
+    # that anchors the tangential DOF (a bare ring corridor is
+    # rotationally symmetric — ICP's cost valley is flat along the
+    # tangent and sparse-sampling noise makes the chain slide)
+    n_boxes = 240
+    for _ in range(n_boxes):
+        a = rng.uniform(0, 2 * np.pi)
+        br = rng.uniform(radius - half_width + 60, radius + half_width - 60)
+        c = np.array([br * np.cos(a), cy - half_height, br * np.sin(a)])
+        w, d, h = rng.uniform(40, 160, 3)
+        yaw = rng.uniform(0, 2 * np.pi)
+        n_b = 2200
+        face = rng.integers(0, 5, n_b)  # 4 sides + top
+        u, v = rng.uniform(0, 1, n_b), rng.uniform(0, 1, n_b)
+        bx = np.where(face == 0, 0.0, np.where(face == 1, w, u * w))
+        bz = np.where(face == 2, 0.0, np.where(face == 3, d, v * d))
+        bx = np.where(face >= 2, u * w, bx)
+        bz = np.where(face < 2, v * d, bz)
+        by = np.where(face == 4, h, v * h)
+        bx, bz = bx - w / 2, bz - d / 2
+        ca, sa = np.cos(yaw), np.sin(yaw)
+        pts = np.stack(
+            [c[0] + ca * bx - sa * bz, c[1] + by, c[2] + sa * bx + ca * bz],
+            axis=1,
+        )
+        extra.append(pts)
+    env = np.concatenate(extra).astype(np.float32)
+
+    range_max = 8.0 * half_width
+    true_mats, odo_mats, locals_ = [], [], []
+    dacc = np.zeros(3)
+    for k in range(n_scans):
+        ang = laps * 2 * np.pi * k / n_scans
+        center = np.array(
+            [radius * np.cos(ang), cy, radius * np.sin(ang)]
+        )
+        theta = np.array([0.0, -ang, 0.0])
+        T = np.asarray(math3d.euler_to_matrix4(center, theta, xp=np))
+        true_mats.append(T)
+        d2 = ((env - center) ** 2).sum(1)
+        inr = d2 < range_max**2
+        vis = env[inr]
+        # solid-angle sampling (P ∝ 1/d²): a real scanner resolves
+        # nearby surfaces densely — uniform-area sampling leaves ~25 cm
+        # inter-scan surface gaps everywhere and ICP walks the
+        # resulting flat cost valley (measured 2 m per-match error)
+        w = 1.0 / np.maximum(d2[inr], 100.0**2)
+        take = min(n_pts, len(vis))
+        sel = rng.choice(len(vis), take, replace=False, p=w / w.sum())
+        vis = vis[sel]
+        Ti = np.linalg.inv(T)
+        local = vis @ Ti[:3, :3].T + Ti[:3, 3]
+        local += rng.normal(0, 1.0, local.shape)  # 1 cm sensor noise
+        locals_.append(local.astype(np.float32))
+        dacc += rng.normal(0, drift, 3)
+        To = T.copy()
+        To[:3, 3] += dacc
+        odo_mats.append(To)
+    return locals_, true_mats, odo_mats
