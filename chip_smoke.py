@@ -9,8 +9,9 @@ Phases (each prints a line; any failure ends the run with a nonzero
 exit code and no result line):
 
 1. device  — a CUDA card must be present; prints its name and power limit.
-2. build   — builds every kernel of the path from csrc/ with nvcc.
-3. kernels — each kernel against its plain PyTorch version on the card, at
+2. build   — builds every kernel of the paths from csrc/ with nvcc, one
+   nvcc per library, started together.
+3. kernels — K1 against its plain PyTorch version on the card, at
    the main path's shapes (the first h468 match as the path gives it:
    reduced, padded to a multiple of 512 and masked; the raw 16384 x 16384
    scan pair; an awkward masked 70001-point model; the strict
@@ -24,8 +25,22 @@ exit code and no result line):
 6. profile — the first h468 match (scan 1 against scan 0) once more under
    torch.profiler: kernel launches and device time per ICP iteration, the
    device's busy share, K1's share of the device time.
+7. kernels B — K2 (the cell-list kernel) against its plain version at the
+   bremen path's shape (scans 0 and 1 of the 13 x 1M-point city sequence
+   reduced on the card, the first match's first NN call): identical rows;
+   the whole chain against K1 at the same shape; K2 alone on the
+   unclamped table against K1; a forced overflow repaired by the lane;
+   the lane's capacity exceeded; the strict boundary; times and the
+   kernel's bound.
+8. slice B — ``torchslam ... -n bremen.net`` on all 13 scans (-r 20 -O 1
+   -d 150 -i 50 --epsICP 1e-4 -I 5 -D 150 --epsSLAM 0.5): K2's launch
+   count must equal the chained ICP loop trips plus the chained LUM link
+   calls; not every match may be redone by brute; ICP and LUM frames.
+9. engines — the first 3 bremen scans through SequenceRegistration with
+   the chained engine (K2) and with the brute engine (K1): same poses.
+10. profile B — one chained bremen match under torch.profiler.
 
-The line before the last is one JSON object describing each kernel; the
+A line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -52,6 +67,20 @@ MAX_DIST = 50.0
 # accuracy gate on the consecutive relative-pose translation error (cm):
 # the JAX package gave 0.16-0.56 cm on scans 1-4 of this data (PERF.md)
 GATE_MEDIAN_CM = 1.0
+
+# bremen regime (bench.py:462-537, scripts/make_golden.py::synth_city)
+CITY_SCANS = 13
+CITY_PTS = 1_000_000
+CITY_SEED = 23
+CITY_DIST = 150.0
+CITY_VOXEL = 20.0
+
+# the card's published peaks (H100 SXM): f32 outside the tensor cores and
+# device memory; and the FP32 pipes' instruction rate the kernels' notes use
+# (132 SMs x 128 lanes x 1.98 GHz over ~13 instruction slots per pair)
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+FP32_PAIRS_PER_S = 132 * 128 * 1.98e9 / 13.0
 
 
 class SmokeFailure(RuntimeError):
@@ -87,9 +116,13 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 
 def device_ms(fn, kernels, reps=10):
-    """Device time per fn() call spent in the named kernels (ms), from a
-    torch.profiler trace of ``reps`` calls."""
+    """Device time per fn() call spent in the named kernels (ms), from
+    the device events of a torch.profiler trace of ``reps`` calls.  Where
+    the trace holds none of them, the time of ``reps`` back-to-back calls
+    by CUDA events instead (equal to the kernels' time only where they
+    outlast their launch; a line says so when that source is used)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -99,11 +132,21 @@ def device_ms(fn, kernels, reps=10):
             fn()
         torch.cuda.synchronize()
     us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if any(k in e.key for k in kernels)
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels)
     )
-    check(us > 0, f"the profiler saw no device time in {kernels}")
-    return us / reps / 1e3
+    if us > 0:
+        return us / reps / 1e3
+    print(f"[profiler] no device events for {kernels}: timing {reps} "
+          "back-to-back calls with CUDA events instead", flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def compare_nn(name, q, qm, m, mm, md2):
@@ -156,11 +199,26 @@ def rel_trans_err(mats, ref):
     return np.asarray(out)
 
 
-def profile_match(run):
-    """One ICP match (``run()`` returns its IcpResult) under torch.profiler: per-iteration counts of the
-    CUDA runtime's kernel launches, of the kernels and copies the card
-    ran, and of device time; the busy share against the unprofiled
-    match's wall time."""
+def nn_bound(pairs, flops_per_pair, nbytes):
+    """Least time (ms) the card could take: the larger of the f32
+    operations over the f32 peak and the bytes (each input read once,
+    each output written once) over the memory rate; which of the two;
+    and the time at the FP32 pipes' instruction rate of the kernels' inner
+    loop, which is the tighter statement for this instruction mix."""
+    ops_ms = pairs * flops_per_pair / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, pairs / FP32_PAIRS_PER_S * 1e3
+
+
+def profile_match(run, n=6, label="first h468 match", units=None,
+                  kernel="K1", names=("nn_partial_kernel", "nn_merge_kernel")):
+    """One ICP match (``run()`` returns its IcpResult) under
+    torch.profiler: per-iteration counts of the CUDA runtime's kernel
+    launches, of the kernels and copies the card ran, and of device
+    time; the busy share against the unprofiled match's wall time.
+    ``units(res)``: how many loop trips the match made (default: its
+    iterations)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -174,8 +232,9 @@ def profile_match(run):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res_p = run()
         torch.cuda.synchronize()
-    it = res.iterations
-    check(res_p.iterations == it, "the profiled match ran another iteration count")
+    units = units or (lambda r: r.iterations)
+    it = units(res)
+    check(units(res_p) == it, "the profiled match ran another iteration count")
     ev = prof.events()
     api = sum(1 for e in ev if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name)
     dev = [e for e in ev if e.device_type == DeviceType.CUDA]
@@ -183,19 +242,364 @@ def profile_match(run):
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
     k1_us = sum(
         e.time_range.elapsed_us() for e in dev
-        if "nn_partial_kernel" in e.name or "nn_merge_kernel" in e.name
+        if any(k in e.name for k in names)
     )
-    check(busy_us > 0 and api > 0, "the profiler saw no launches or device time in the match")
+    check(api > 0, "the profiler saw no kernel launches in the match")
+    if busy_us == 0:
+        phase(
+            n, "profile",
+            f"{label}: {it} ICP loop trips, {wall_ms / it:.4f} ms per iteration "
+            f"unprofiled; per iteration: {api / it:.2f} kernel launches (CUDA "
+            "runtime calls); device time not measured: the trace holds no "
+            "device activity",
+        )
+        return
     phase(
-        6, "profile",
-        f"first h468 match: {it} ICP iterations, {wall_ms / it:.4f} ms per "
+        n, "profile",
+        f"{label}: {it} ICP loop trips, {wall_ms / it:.4f} ms per "
         f"iteration unprofiled; per iteration: {api / it:.2f} kernel launches "
         f"(CUDA runtime calls), {(len(dev) - len(copies)) / it:.2f} kernels and "
         f"{len(copies) / it:.2f} copies/sets on the card, device time "
-        f"{busy_us / it / 1e3:.4f} ms (K1 {k1_us / it / 1e3:.4f} ms, "
+        f"{busy_us / it / 1e3:.4f} ms ({kernel} {k1_us / it / 1e3:.4f} ms, "
         f"{100 * k1_us / busy_us:.1f}% of it); device busy "
         f"{100 * busy_us / 1e3 / wall_ms:.1f}% of the unprofiled match",
     )
+
+
+def ate_rmse(mats, ref):
+    import numpy as np
+
+    d = np.stack([m[:3, 3] for m in mats]) - np.stack([m[:3, 3] for m in ref])
+    return float(np.sqrt((d**2).sum(1).mean()))
+
+
+def bremen_phases(dev, params_city):
+    """Phases 7-10: kernel K2 and the city-scale path.  Returns K2's
+    entry for the kernels line."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io.frames import AlgoType
+    from tpu3dtk_torch.models import graphslam as gs
+    from tpu3dtk_torch.models import icp as icp_mod
+    from tpu3dtk_torch.models import sequence as seq_mod
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.ops.nn_cell_list_cuda import cell_list_rows_kernel
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    def cu(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    md2 = CITY_DIST**2
+    t0 = time.perf_counter()
+    locals_, true_mats, odo_mats = synth.synth_city(
+        n_scans=CITY_SCANS, n_pts=CITY_PTS, seed=CITY_SEED
+    )
+    check(all(len(x) == CITY_PTS for x in locals_), "synth_city gave short scans")
+    phase(7, "kernels B", f"synth_city {CITY_SCANS} x {CITY_PTS} pts generated in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def reduced_scans(n):
+        out = []
+        for k in range(n):
+            s = Scan.from_points(locals_[k], f"{k:03d}", odo_mats[k])
+            s.device = "cuda"
+            s.set_reduction(CITY_VOXEL, 1)
+            s.reduced_local()
+            out.append(s)
+        return out
+
+    # ---- phase 7: K2 at the path's shape ----------------------------------
+    t0 = time.perf_counter()
+    trio = reduced_scans(3)
+    red_s = (time.perf_counter() - t0) / 3
+    reg = seq_mod.SequenceRegistration(params=params_city, device="cuda")
+    t0 = time.perf_counter()
+    prep = reg._prepare(trio[:2])
+    spec = prep["chain_spec"]
+    check(spec is not None, "no cell-list spec at the bremen shape: the path would stay on brute")
+    phase(
+        7, "kernels B",
+        f"reduction {red_s:.2f} s a scan; scans 0 and 1: "
+        f"{int(prep['masks'][0].sum())} and {int(prep['masks'][1].sum())} reduced points, "
+        f"padded to {prep['cap']}; spec sized on the host in {time.perf_counter() - t0:.2f} s: "
+        f"RB={spec['RB']} chunk={spec['chunk']} perm={spec['perm']} dims={spec['dims']} "
+        f"cap_over={spec['cap_over']}",
+    )
+    pair_mats = cu(np.stack(odo_mats[:2]).astype(np.float32))
+    model, mmask = icp_mod._window(prep["locals"], prep["masks"], pair_mats, 0, 1, 1)
+    model = model.contiguous()
+    q = math3d.transform3(pair_mats[1], prep["locals"][1]).to(torch.float32).contiguous()
+    qm = prep["masks"][1].contiguous()
+    kw = dict(dims=spec["dims"], RB=spec["RB"], chunk=spec["chunk"],
+              perm=tuple(spec["perm"]), cap_over=spec["cap_over"])
+    clm, oob_m = ncl.build_cell_list_model(
+        model, mmask, spec["origin"], CITY_DIST, dims=spec["dims"], RB=spec["RB"],
+        perm=kw["perm"],
+    )
+    table, q_s, order, maxlen, oob_q = ncl.cell_list_plan_device(
+        q, qm, clm, dims=spec["dims"], chunk=spec["chunk"], perm=kw["perm"]
+    )
+    check(int(oob_m) == 0 and int(oob_q) == 0, "points outside the grid box at the odometry poses")
+    table_c = ncl.clamp_table(table, spec["RB"])
+    T = spec["chunk"]
+    k_rows, k_score = cell_list_rows_kernel(table_c, q_s, clm.model_sorted, T)
+    p_rows, p_score = ncl.cell_list_rows(table_c, q_s, clm.model_sorted, T)
+    torch.cuda.synchronize()
+    check(torch.equal(k_rows, p_rows), "K2: rows differ from the plain version")
+    fin = torch.isfinite(p_score)
+    check(torch.equal(torch.isfinite(k_score), fin), "K2: candidate-less queries differ")
+    k2_err = (k_score[fin] - p_score[fin]).abs().max().item()
+    check(k2_err == 0.0, f"K2: scores differ from the plain version by {k2_err}")
+    fk = ncl.cell_list_post_device(k_rows, order, q, qm, clm, md2)[2]
+    fp = ncl.cell_list_post_device(p_rows, order, q, qm, clm, md2)[2]
+    check(torch.equal(fk, fp), "K2: found differs from the plain version")
+    lens = table_c[:, 4::3].long().clamp(min=0)
+    cand_rows = int(lens.sum())
+    pairs = cand_rows * T
+    n_over_chunks = int(((table[:, 3::3] + table[:, 4::3]).max(dim=1).values > spec["RB"]).sum())
+    W = table.shape[0]
+    nbytes = table.numel() * 4 + q_s.numel() * 4 + clm.model_sorted.numel() * 4 + 8 * W * T
+    bound_ms, bound_by, instr_ms = nn_bound(pairs, 8, nbytes)
+    k_ms = cuda_ms(lambda: cell_list_rows_kernel(table_c, q_s, clm.model_sorted, T))
+    p_ms = cuda_ms(lambda: ncl.cell_list_rows(table_c, q_s, clm.model_sorted, T), reps=3, warmup=1)
+    d_ms = device_ms(
+        lambda: cell_list_rows_kernel(table_c, q_s, clm.model_sorted, T), ("cell_list_kernel",)
+    )
+    phase(
+        7, "kernels B",
+        f"K2 at the first bremen NN call: Q={q.shape[0]} M={model.shape[0]} W={W} chunks of {T}; "
+        f"rows identical, max|score diff|={k2_err:.1e}, found identical ({int(fk.sum())}); "
+        f"candidate rows per chunk: mean {cand_rows / W:.1f}, max {int(lens.sum(1).max())}, "
+        f"longest range {int(maxlen)} (RB {spec['RB']}, {n_over_chunks} chunks clamped); "
+        f"wrapper {k_ms:.4f} ms (kernel's own device time {d_ms:.4f} ms), plain {p_ms:.4f} ms",
+    )
+    phase(
+        7, "kernels B",
+        f"K2 bound: {pairs:.4g} pairs x 8 f32 operations over 67 TFLOP/s vs {nbytes:.4g} bytes "
+        f"over 3.35 TB/s = {bound_ms:.5f} ms (bound by {bound_by}); candidate bytes "
+        f"{cand_rows * 16 / PEAK_BYTES * 1e3:.5f} ms; at the FP32 instruction rate of its inner loop "
+        f"({FP32_PAIRS_PER_S:.3g} pairs/s) {instr_ms:.5f} ms; measured {pairs / d_ms / 1e9:.4g}e12 pairs/s",
+    )
+
+    # the whole chain against K1 at the same shape: both exact
+    c_idx, c_d2, c_found, c_ovf, c_oob = ncl.nn_cell_list_chained(q, qm, clm, md2, **kw)
+    b_idx, b_d2, b_found = nn_cuda.nn_brute_kernel(q, qm, model, mmask, md2)
+    torch.cuda.synchronize()
+    check(not bool(c_ovf) and int(c_oob) == 0, "chain: a guard fired at the odometry poses")
+    check(torch.equal(c_found, b_found), "chain vs K1: found differs")
+    agree = (c_idx[c_found] == b_idx[c_found]).double().mean().item()
+    d2_err = (c_d2[c_found] - b_d2[c_found]).abs().max().item()
+    # K1 ranks on coordinates centred on the model mean, K2 on the raw
+    # ones: a pair of candidates closer than that rounding (~1e-3 cm at
+    # 10^4 cm extents) may swap; d2 is recomputed exactly for both
+    check(agree >= 0.999, f"chain vs K1: index agreement {agree}")
+    check(d2_err <= 0.5, f"chain vs K1: chosen d2 differs by {d2_err}")
+    chain_ms = cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw), reps=10)
+    k1_ms = cuda_ms(lambda: nn_cuda.nn_brute_kernel(q, qm, model, mmask, md2), reps=5, warmup=1)
+    lane_args = ncl.cell_list_post_device(k_rows, order, q, qm, clm, md2)
+    def lane():
+        return ncl._overflow_lane(
+            table, order, q, qm, *lane_args, clm, md2, RB=spec["RB"], chunk=T,
+            cap_over=spec["cap_over"])
+
+    lane_ms = cuda_ms(lane, reps=10)
+    lane_dev_ms = device_ms(lane, ("",))  # every device event of the call
+    plan_ms = cuda_ms(lambda: ncl.cell_list_plan_device(
+        q, qm, clm, dims=spec["dims"], chunk=T, perm=kw["perm"]), reps=10)
+    # K2 on the unclamped table: what this card does without RB and the lane
+    u_rows, _ = cell_list_rows_kernel(table, q_s, clm.model_sorted, T)
+    u_idx, _, u_found = ncl.cell_list_post_device(u_rows, order, q, qm, clm, md2)
+    check(torch.equal(u_found, b_found), "unclamped K2 vs K1: found differs")
+    u_agree = (u_idx[u_found] == b_idx[u_found]).double().mean().item()
+    check(u_agree >= 0.999, f"unclamped K2 vs K1: index agreement {u_agree}")
+    u_ms = cuda_ms(lambda: cell_list_rows_kernel(table, q_s, clm.model_sorted, T))
+    u_pairs = int(table[:, 4::3].long().clamp(min=0).sum()) * T
+    phase(
+        7, "kernels B",
+        f"K2 on the unclamped table (no RB, no lane): {u_pairs:.4g} pairs, {u_ms:.4f} ms, "
+        f"found identical to K1, index agreement {u_agree:.6f}",
+    )
+    phase(
+        7, "kernels B",
+        f"chain vs K1 at {q.shape[0]} x {model.shape[0]}: found identical ({int(c_found.sum())}), "
+        f"index agreement {agree:.6f}, max|d2 diff| {d2_err:.3e}; whole chained NN call "
+        f"{chain_ms:.4f} ms (query plan {plan_ms:.4f} ms, K2 {k_ms:.4f} ms, overflow lane "
+        f"{lane_ms:.4f} ms, always run, {lane_dev_ms:.4f} ms of it device time) vs K1 brute "
+        f"{k1_ms:.4f} ms",
+    )
+
+    # forced overflow: RB=128 clamps every range of a 30000-query subset;
+    # the lane (K1) repairs them all
+    sub = torch.randperm(q.shape[0], generator=torch.Generator().manual_seed(1))[:30000].to(dev)
+    qs, qms = q[sub].contiguous(), qm[sub].contiguous()
+    small = dict(kw, RB=128, cap_over=32768)
+    clm_s, _ = ncl.build_cell_list_model(
+        model, mmask, spec["origin"], CITY_DIST, dims=spec["dims"], RB=128, perm=kw["perm"])
+    o_idx, o_d2, o_found, o_ovf, _ = ncl.nn_cell_list_chained(qs, qms, clm_s, md2, **small)
+    check(not bool(o_ovf), "forced overflow: the lane's capacity was exceeded")
+    check(torch.equal(o_found, b_found[sub]), "forced overflow: found differs from K1")
+    o_agree = (o_idx[o_found] == b_idx[sub][o_found]).double().mean().item()
+    check(o_agree >= 0.999, f"forced overflow: index agreement with K1 {o_agree}")
+    _, _, _, cap_ovf, _ = ncl.nn_cell_list_chained(qs, qms, clm_s, md2, **dict(small, cap_over=4096))
+    check(bool(cap_ovf), "lane capacity exceeded but the overflow guard stayed green")
+    phase(7, "kernels B", f"forced overflow (RB=128, 30000 queries): repaired by the lane, "
+          f"equal to K1 ({int(o_found.sum())} found); with cap_over=4096 the guard fires")
+
+    # the strict boundary through the host-planned form
+    nq = 5000
+    qb = np.zeros((nq, 3), np.float32)
+    qb[:, 0] = 40.0 * (np.arange(nq) % 70)
+    qb[:, 1] = 40.0 * (np.arange(nq) // 70)
+    mb = np.concatenate([qb + [10.0, 0.0, 0.0], qb + [0.0, 0.0, 60.0]]).astype(np.float32)
+    for thr, expect in ((100.0, False), (100.01, True)):
+        idx, d2, found = ncl.nn_cell_list(
+            mb, np.ones(2 * nq, bool), qb, np.ones(nq, bool), thr, device=dev)
+        check(bool((idx == np.arange(nq)).all()), "K2 boundary: wrong neighbour")
+        check(bool((d2 == 100.0).all()), "K2 boundary: d2 != 100 exactly")
+        check(bool((found == expect).all()), f"K2 boundary: found != {expect} at {thr}")
+    phase(7, "kernels B", "boundary d2=100: not found at max_dist2=100.0, found at 100.01")
+
+    # ---- phase 8: the bremen slice through the CLI ------------------------
+    links = [(i, i + 1) for i in range(CITY_SCANS - 1)] + [(0, CITY_SCANS - 1)]
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_dir = os.path.join(tmp, "scans")
+        out_dir = os.path.join(tmp, "frames")
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        idents = synth.write_scan_dir(scan_dir, locals_, odo_mats)
+        net = os.path.join(scan_dir, "bremen.net")
+        synth.write_net_graph(net, CITY_SCANS, links)
+        write_s = time.perf_counter() - t0
+        metrics.reset()
+        cell_list_rows_kernel.launches = 0
+        nn_cuda.nn_brute_kernel.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = slam6d.main([
+                scan_dir, "-f", "uos", "-r", str(CITY_VOXEL), "-O", "1", "-d", str(CITY_DIST),
+                "-i", "50", "--epsICP", "1e-4", "-n", net, "-I", "5", "-D", str(CITY_DIST),
+                "--epsSLAM", "0.5", "--frames-out", out_dir,
+            ])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k2_launches = cell_list_rows_kernel.launches
+        k1_launches = nn_cuda.nn_brute_kernel.launches
+        text = buf.getvalue()
+        check(rc == 0, f"torchslam -n returned {rc}")
+        frames = [frames_io.read_frames(frames_io.frames_path(out_dir, i)) for i in idents]
+    cnt = {k: int(m.total) for k, m in metrics.counters.items()}
+    tim = {k: m.total for k, m in metrics.timers.items()}
+    iters = [int(v) for v in re.findall(r"^scan \d+: ITER (\d+)", text, re.M)]
+    pairs_m = [int(v) for v in re.findall(r"pairs (\d+)$", text, re.M)]
+    match_ms = float(re.search(r"Matching done in (\d+) milliseconds", text).group(1))
+    check(len(iters) == CITY_SCANS - 1, f"{len(iters)} matches reported, want {CITY_SCANS - 1}")
+    trips = cnt.get(icp_mod.CHAINED_TRIPS, 0)
+    link_calls = cnt.get(gs.CHAINED_LINK_CALLS, 0)
+    n_chain = cnt.get(seq_mod.CHAINED_MATCHES, 0)
+    n_redone = cnt.get(seq_mod.CHAINED_REDONE, 0)
+    check(k2_launches > 0, "the bremen path never launched K2")
+    check(k2_launches == trips + link_calls,
+          f"K2 launches {k2_launches} != ICP loop trips {trips} + LUM link calls {link_calls}")
+    check(n_chain == CITY_SCANS - 1, f"{n_chain} matches went to the chained engine")
+    check(n_redone < n_chain, "every chained match was redone by brute")
+    tags = [list(t) for _m, t in frames]
+    lum_iters = tags[0].count(int(AlgoType.LUM))
+    check(lum_iters >= 1 and link_calls % len(links) == 0 and link_calls >= lum_iters * len(links),
+          f"{link_calls} LUM link calls for {lum_iters} LUM iterations of {len(links)} links")
+    check(all(int(AlgoType.LUM) == t[-1] for t in tags), "the last frame of a scan is not LUM-tagged")
+    check(all(int(AlgoType.ICP) in t for t in tags[1:]), "a registered scan has no ICP frame")
+    mats = np.stack([m[-1] for m, _t in frames])
+    check(bool(np.isfinite(mats).all()), "non-finite poses")
+    icp_mats = np.stack([
+        m[max(i for i, v in enumerate(t) if v != int(AlgoType.LUM))] for m, t in frames
+    ])
+    e = rel_trans_err(mats, true_mats)
+    ei = rel_trans_err(icp_mats, true_mats)
+    eo = rel_trans_err(np.stack(odo_mats), true_mats)
+    phase(
+        8, "slice B",
+        f"{CITY_SCANS} scans x {CITY_PTS} pts written in {write_s:.1f} s; torchslam -n wall "
+        f"{wall_s:.2f} s: read {tim.get('read_scan_time', 0.0):.2f} s, matching+LUM span "
+        f"{match_ms / 1e3:.2f} s (LUM covariances {tim.get(gs.LUM_COV, 0.0):.2f} s, solve "
+        f"{tim.get(gs.LUM_SOLVE, 0.0):.3f} s, {lum_iters} LUM iterations); {len(iters)} matches, "
+        f"reported iterations {sum(iters)} (per match {iters}), median pairs "
+        f"{int(np.median(pairs_m))}",
+    )
+    phase(
+        8, "slice B",
+        f"K2 launches {k2_launches} = {trips} chained ICP loop trips + {link_calls} chained LUM "
+        f"link calls; matches redone by brute {n_redone} of {n_chain}; K1 launches "
+        f"{k1_launches} (the overflow lane of every K2 call, and brute redos)",
+    )
+    phase(
+        8, "slice B",
+        f"consecutive relative-pose translation error (cm): after LUM median {np.median(e):.4f} "
+        f"max {e.max():.4f}; after ICP median {np.median(ei):.4f} max {ei.max():.4f}; odometry "
+        f"median {np.median(eo):.4f} max {eo.max():.4f}; ATE rmse after LUM "
+        f"{ate_rmse(mats, true_mats):.2f} cm, after ICP {ate_rmse(icp_mats, true_mats):.2f} cm, "
+        f"odometry {ate_rmse(odo_mats, true_mats):.2f} cm",
+    )
+    check(float(np.median(e)) < float(np.median(eo)), "registration is no better than odometry")
+
+    # ---- phase 9: chained engine against brute engine ---------------------
+    runs = {}
+    for name, cmin in (("chained", 98304), ("brute", 10**12)):
+        scans = []
+        for s0 in trio:
+            s = Scan.from_points(s0.xyz, s0.identifier, s0.transMatOrg)
+            s.device = "cuda"
+            s.set_reduction(CITY_VOXEL, 1)
+            s._reduced_local = s0.reduced_local()
+            scans.append(s)
+        before = cell_list_rows_kernel.launches
+        t0 = time.perf_counter()
+        res = seq_mod.SequenceRegistration(
+            params=params_city, device="cuda", chained_min=cmin).run(scans)
+        torch.cuda.synchronize()
+        runs[name] = (scans, res, time.perf_counter() - t0,
+                      cell_list_rows_kernel.launches - before)
+    (cs, cres, c_s, c_l), (bs, bres, b_s, b_l) = runs["chained"], runs["brute"]
+    check(c_l > 0 and b_l == 0, f"engine choice: K2 launches {c_l} chained, {b_l} brute")
+    dt = max(float(np.abs(a.transMat[:3, 3] - b.transMat[:3, 3]).max()) for a, b in zip(cs, bs))
+    dr = max(float(np.abs(a.transMat[:3, :3] - b.transMat[:3, :3]).max()) for a, b in zip(cs, bs))
+    di = max(abs(a["iterations"] - b["iterations"]) for a, b in zip(cres, bres))
+    phase(
+        9, "engines",
+        f"3 bremen scans: chained (K2) {c_s:.2f} s incl. spec sizing vs brute (K1) {b_s:.2f} s; "
+        f"iterations {[r['iterations'] for r in cres]} vs {[r['iterations'] for r in bres]}; "
+        f"max pose diff {dt:.4f} cm / {dr:.2e} rot; max iteration diff {di}",
+    )
+    check(dt <= 0.01 and dr <= 1e-6, "chained and brute engine poses disagree")
+    check(di <= 1, "chained and brute engine iteration counts disagree")
+
+    # ---- phase 10: one chained bremen match, profiled ---------------------
+    def chained_match():
+        before = metrics.counters[icp_mod.CHAINED_TRIPS].total
+        r = icp_mod.icp_pair_chained(
+            model, mmask, prep["locals"][1], prep["masks"][1], pair_mats[1],
+            max_dist_match2=md2, epsilon=params_city.epsilon,
+            max_iterations=params_city.max_iterations, spec=spec,
+        )
+        chained_match.trips = int(metrics.counters[icp_mod.CHAINED_TRIPS].total - before)
+        return r
+
+    profile_match(
+        chained_match, n=10, label="first bremen match (chained)",
+        units=lambda r: chained_match.trips, kernel="K2", names=("cell_list_kernel",),
+    )
+    return {
+        "launches": k2_launches, "k1_launches": k1_launches, "max_abs_err": k2_err,
+        "ms": k_ms, "plain_ms": p_ms, "device_ms": d_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "instr_bound_ms": instr_ms,
+    }
 
 
 def main() -> int:
@@ -227,16 +631,22 @@ def main() -> int:
     print(smi_line, flush=True)
 
     # ---- phase 2: build ---------------------------------------------------
-    from tpu3dtk_torch.ops import cuda_build, nn_cuda
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu3dtk_torch.ops import cuda_build, nn_cell_list_cuda, nn_cuda
 
     t0 = time.perf_counter()
-    nn_cuda.load()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per library, together
+        for fut in [pool.submit(nn_cuda.load), pool.submit(nn_cell_list_cuda.load)]:
+            fut.result()
     build_s = time.perf_counter() - t0
-    ptxas = " | ".join(
-        ln.strip() for ln in cuda_build.build_logs.get("nn_brute", "").splitlines()
-        if "registers" in ln or "spill" in ln
-    )
-    phase(2, "build", f"nn_brute built+loaded in {build_s:.2f} s; ptxas: {ptxas or 'cached'}")
+    for lib in ("nn_brute", "nn_cell_list"):
+        ptxas = " | ".join(
+            ln.strip() for ln in cuda_build.build_logs.get(lib, "").splitlines()
+            if "registers" in ln or "spill" in ln
+        )
+        phase(2, "build", f"{lib}: ptxas: {ptxas or 'cached'}")
+    phase(2, "build", f"nn_brute and nn_cell_list built+loaded together in {build_s:.2f} s")
 
     # ---- data (h468 regime) -----------------------------------------------
     from tpu3dtk_torch import synth
@@ -285,6 +695,16 @@ def main() -> int:
     err_r, k_ms, p_ms, k_dev_ms, *_ = compare_nn(
         "h468 first match, reduced + padded", q_red, qm_red,
         m_red.contiguous(), mm_red.contiguous(), md2,
+    )
+
+    k1_pairs = q_red.shape[0] * m_red.shape[0]
+    k1_bytes = 12 * (q_red.shape[0] + m_red.shape[0]) + q_red.shape[0] + m_red.shape[0] + 13 * q_red.shape[0]
+    k1_bound, k1_by, k1_instr = nn_bound(k1_pairs, 9, k1_bytes)
+    phase(
+        3, "kernels",
+        f"K1 bound at this shape: {k1_pairs:.4g} pairs x 9 f32 operations over "
+        f"67 TFLOP/s = {k1_bound:.5f} ms (bound by {k1_by}); at the FP32 instruction "
+        f"rate of its inner loop ({FP32_PAIRS_PER_S:.3g} pairs/s) {k1_instr:.5f} ms",
     )
 
     model0 = g(odo_mats[0], locals_[0])
@@ -414,16 +834,39 @@ def main() -> int:
         )
     )
 
+    k2 = bremen_phases(dev, params_city=IcpParams(
+        max_dist_match2=CITY_DIST**2, max_iterations=50, epsilon=1e-4
+    ))
+
     print(json.dumps({"kernels": [{
         "name": "nn_brute",
         "route": "cuda",
         "source": "tpu3dtk_torch/csrc/nn_brute.cu",
         "replaces": "tpu3dtk/ops/nn_pallas.py:732",
         "launches": launches,
+        "launches_bremen": k2["k1_launches"],
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
         "device_ms": k_dev_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "instr_bound_ms": k1_instr,
+        "library_ms": None,
+    }, {
+        "name": "nn_cell_list",
+        "route": "cuda",
+        "source": "tpu3dtk_torch/csrc/nn_cell_list.cu",
+        "replaces": "tpu3dtk/ops/nn_pallas.py:224",
+        "launches": k2["launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "device_ms": k2["device_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "instr_bound_ms": k2["instr_bound_ms"],
+        "library_ms": None,
     }]}))
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,225 @@
+"""The chained cell-list ICP engine of the port (kernel K2's plain
+version on the CPU) against the JAX package's (Pallas K2 in interpret
+mode), and the engine choice of SequenceRegistration.
+
+Bounds:
+- ``icp_pair_chained`` against JAX's chained result on one pair: pose
+  within 0.01 cm and 1e-6 on rotation entries, iterations within 3.  Both
+  run the same f32 update on (nearly) the same pairs; the JAX kernel's
+  split ranking may swap a few near-equidistant candidates and the f32
+  pair-statistics sums run in another order, which moves the late pose
+  increments near the 1e-2 cm fixpoint threshold and with them the stop
+  (the reason ROADMAP gives for metascan matches).
+- the port's chained engine against its own brute engine: both are
+  exact, so poses agree to 0.01 cm / 1e-6 and iterations within 1.
+- ``SequenceRegistration`` against the JAX package's (which, off a TPU,
+  registers through its brute engine): the bounds of
+  tests/test_torch_sequence.py, 0.5 cm / 1e-3 and iterations ±1."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu3dtk.core import math3d as jmath
+from tpu3dtk.core.scan import TPUScan
+from tpu3dtk.models import icp as jicp
+from tpu3dtk.models.sequence import SequenceRegistration as JSeq
+from tpu3dtk_torch import interop
+from tpu3dtk_torch.models import icp as ticp
+from tpu3dtk_torch.models import sequence as tseq
+from tpu3dtk_torch.synth import synth_loop
+from tpu3dtk_torch.utils.metrics import metrics
+
+
+def _pair(rng):
+    # tests/test_nn_pallas.py:106-130
+    world = rng.uniform(0, 400, (5000, 3)).astype(np.float32)
+    T_true = np.asarray(
+        jmath.euler_to_matrix4([6.0, -4.0, 5.0], [0.01, -0.02, 0.015])
+    )
+    target = np.asarray(
+        jmath.transform3(jmath.m4inv(T_true), world)
+    ).astype(np.float32)
+    return world, target, T_true
+
+
+def test_icp_pair_chained_matches_jax(rng):
+    world, target, T_true = _pair(rng)
+    kw = dict(max_dist_match2=625.0, epsilon=1e-7, max_iterations=40)
+    jres = jicp.icp_pair_chained(
+        jnp.asarray(world), jnp.ones(len(world), bool), jnp.asarray(target),
+        jnp.ones(len(target), bool), jnp.eye(4, dtype=jnp.float32), **kw,
+    )
+    metrics.reset()
+    tres = ticp.icp_pair_chained(
+        torch.as_tensor(world), torch.ones(len(world), dtype=torch.bool),
+        torch.as_tensor(target), torch.ones(len(target), dtype=torch.bool),
+        torch.eye(4), **kw,
+    )
+    assert int(jres.maxocc) == 0 and tres.maxocc == 0  # guards stayed green
+    Tj, Tt = np.asarray(jres.T, np.float64), tres.T.double().numpy()
+    np.testing.assert_allclose(Tt[:3, 3], Tj[:3, 3], atol=0.01)
+    np.testing.assert_allclose(Tt[:3, :3], Tj[:3, :3], atol=1e-6)
+    np.testing.assert_allclose(Tt, T_true, atol=0.5)
+    assert abs(tres.iterations - int(jres.iterations)) <= 3
+    assert tres.error == pytest.approx(float(jres.error), abs=1e-3)
+    assert tres.n_pairs == float(jres.n_pairs)
+    # loop trips are polled every 4th: a multiple of 4 (or the cap), and
+    # at least the reported iterations
+    trips = int(metrics.counters[ticp.CHAINED_TRIPS].total)
+    assert trips >= tres.iterations and (trips % 4 == 0 or trips == 40)
+    # the port's brute engine on the same pair: both exact
+    bres = ticp.icp_pair(
+        torch.as_tensor(world), torch.ones(len(world), dtype=torch.bool),
+        torch.as_tensor(target), torch.ones(len(target), dtype=torch.bool),
+        torch.eye(4), **kw,
+    )
+    Tb = bres.T.double().numpy()
+    np.testing.assert_allclose(Tt[:3, 3], Tb[:3, 3], atol=0.01)
+    np.testing.assert_allclose(Tt[:3, :3], Tb[:3, :3], atol=1e-6)
+    assert abs(tres.iterations - bres.iterations) <= 1
+
+
+def test_chain_update_freezes_pose_once_done(rng):
+    """After ``done`` the pose stays and the iteration count stops."""
+    world, target, _ = _pair(rng)
+    model = torch.as_tensor(world[:500])
+    tgt = torch.as_tensor(world[:500] + np.float32(0.5))
+    idx = torch.arange(500)
+    found = torch.ones(500, dtype=torch.bool)
+    inf = torch.full((), float("inf"), dtype=torch.float64)
+    T = torch.eye(4)
+    for done, want_n in ((False, 1), (True, 0)):
+        conv = (inf, inf, inf, torch.tensor(done), torch.zeros((), dtype=torch.int32))
+        T2, conv2, n = ticp._chain_update_conv(
+            model, idx, found, tgt, T, conv, 1e-7, ticp.mz.align_quat
+        )
+        assert int(conv2[4]) == want_n and float(n) == 500.0
+        assert torch.equal(T2, T) is done
+        assert conv2[0].dtype == torch.float64
+    # fewer than 4 pairs: done, pose kept
+    conv = (inf, inf, inf, torch.tensor(False), torch.zeros((), dtype=torch.int32))
+    few = torch.zeros(500, dtype=torch.bool)
+    few[:3] = True
+    T2, conv2, n = ticp._chain_update_conv(
+        model, idx, few, tgt, T, conv, 1e-7, ticp.mz.align_quat
+    )
+    assert bool(conv2[3]) and torch.equal(T2, T) and float(n) == 3.0
+
+
+def _scans(n_scans=4, n_pts=4000, seed=5):
+    # the first scans of a 60-scan loop: ~1.25 m apart, well overlapping
+    locs, _true, odo = synth_loop(n_scans=60, n_pts=n_pts, seed=seed)
+    jscans = []
+    for k, (loc, To) in enumerate(zip(locs[:n_scans], odo[:n_scans])):
+        s = TPUScan.from_points(loc, f"{k:03d}", To)
+        s.set_reduction(10.0, 1)
+        s.reduced_local()
+        jscans.append(s)
+    return jscans
+
+
+def _carry(jscans, params):
+    return interop.scans_from_numpy(
+        [
+            {"identifier": s.identifier, "xyz": s.xyz,
+             "reduced_local": s.reduced_local(), "transMatOrg": s.transMatOrg,
+             "transMat": s.transMat, "reduction_voxel": s.reduction_voxel,
+             "reduction_nrpts": s.reduction_nrpts}
+            for s in jscans
+        ],
+        params,
+    )
+
+
+PARAMS = dict(max_dist_match2=2500.0, max_iterations=30, epsilon=1e-6)
+
+
+def _window1_spec(scans):
+    """The spec ``SequenceRegistration._chain_spec`` sizes for window-1
+    matching, without its 9·RB < window gate: at test size a chunk of 256
+    queries spans a large part of a 4000-point scan (9·RB > 4000), so the gate (rightly)
+    declines and the test sets the spec by hand to drive the engine."""
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+
+    clouds = [s.reduced_global().astype(np.float32) for s in scans]
+    return ncl.cell_list_spec(
+        np.concatenate(clouds), 50.0, headroom=2.0, model_sets=clouds,
+        queries=clouds, pairs=[(i - 1, i) for i in range(1, len(clouds))],
+    )
+
+
+@pytest.mark.parametrize("metascan", [False, True])
+def test_sequence_chained_engine(metascan):
+    """A small ``chained_min`` sends every match through the chained
+    engine: same poses as the port's brute engine and as the JAX
+    package's SequenceRegistration."""
+    jscans = _scans(n_pts=5000 if metascan else 4000)
+    a, params = _carry(jscans, PARAMS)
+    b, _ = _carry(jscans, PARAMS)
+    metrics.reset()
+    reg = tseq.SequenceRegistration(
+        params=params, metascan=metascan, device="cpu", chained_min=512
+    )
+    prep = reg._prepare(a)
+    if metascan:
+        assert prep["chain_spec"] is not None  # 9·RB < 4 scans x cap
+    else:
+        assert prep["chain_spec"] is None  # the gate declines: see _window1_spec
+        prep["chain_spec"] = _window1_spec(a)
+    res_c = reg.run(a)
+    n_chain = int(metrics.counters[tseq.CHAINED_MATCHES].total)
+    assert n_chain == len(a) - 1
+    assert int(metrics.counters[tseq.CHAINED_REDONE].total) == 0
+    assert int(metrics.counters[ticp.CHAINED_TRIPS].total) >= sum(
+        r["iterations"] for r in res_c
+    )
+    metrics.reset()
+    brute = tseq.SequenceRegistration(params=params, metascan=metascan, device="cpu")
+    res_b = brute.run(b)
+    assert brute._prep["chain_spec"] is None  # default chained_min: out of reach
+    assert not metrics.counters[tseq.CHAINED_MATCHES].count
+    jres = JSeq(
+        params=jicp.IcpParams(**PARAMS), metascan=metascan, mesh=None
+    ).run(jscans)
+    slack = 3 if metascan else 1  # tests/test_torch_sequence.py docstring
+    for rc, rb, rj in zip(res_c, res_b, jres):
+        assert abs(rc["iterations"] - rb["iterations"]) <= 1
+        assert abs(rc["iterations"] - rj["iterations"]) <= slack
+        assert rc["error"] == pytest.approx(rb["error"], abs=1e-3)
+        assert rc["pairs"] == rb["pairs"]
+    for x, y, j in zip(a, b, jscans):
+        np.testing.assert_allclose(x.transMat[:3, 3], y.transMat[:3, 3], atol=0.01)
+        np.testing.assert_allclose(x.transMat[:3, :3], y.transMat[:3, :3], atol=1e-6)
+        np.testing.assert_allclose(x.transMat[:3, 3], j.transMat[:3, 3], atol=0.5)
+        np.testing.assert_allclose(x.transMat[:3, :3], j.transMat[:3, :3], atol=1e-3)
+        assert [f[1] for f in x.frames] == [f[1] for f in y.frames] == [
+            f[1] for f in j.frames
+        ]
+
+
+def test_fired_guard_redoes_with_brute():
+    """A scan whose odometry pose lies outside the grid box the spec was
+    sized with fires the out-of-box guard after extrapolation... here the
+    box is made too small on purpose: the match is redone with brute and
+    gives the brute engine's poses."""
+    jscans = _scans(n_scans=3)
+    a, params = _carry(jscans, PARAMS)
+    b, _ = _carry(jscans, PARAMS)
+    reg = tseq.SequenceRegistration(params=params, device="cpu", chained_min=512)
+    prep = reg._prepare(a)
+    spec = dict(_window1_spec(a))
+    spec["dims"] = (spec["dims"][0] // 2, spec["dims"][1], spec["dims"][2])
+    prep["chain_spec"] = spec  # half the box along one axis: points fall outside
+    metrics.reset()
+    reg.run(a)
+    assert int(metrics.counters[tseq.CHAINED_MATCHES].total) == 2
+    assert int(metrics.counters[tseq.CHAINED_REDONE].total) == 2
+    tseq.SequenceRegistration(params=params, device="cpu").run(b)
+    # the same brute matches; run_single carries the poses through the
+    # host in f64 between matches, the device loop keeps them in f32
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.transMat[:3, 3], y.transMat[:3, 3], atol=0.01)
+        np.testing.assert_allclose(x.transMat[:3, :3], y.transMat[:3, :3], atol=1e-6)
+        assert len(x.frames) == len(y.frames)

@@ -1,0 +1,390 @@
+"""The cell-list NN of the port (``tpu3dtk_torch.ops.nn_cell_list``, the
+plain version of kernel K2 on the CPU) against the JAX package's
+(``tpu3dtk.ops.nn_pallas``, its Pallas kernel in interpret mode) and
+against an exact f64 oracle, on the same numpy inputs.
+
+Bounds:
+- the host-side spec, the sorted model and the per-chunk table are
+  integer or copied data: equal entry for entry;
+- against the cKDTree f64 oracle the port is exact: it ranks in exact f32
+  on direct differences, so on random data (no two candidates within f32
+  rounding of each other) ``found`` and the chosen index are identical;
+- against the JAX chain: its 3-pass bf16 split ranking may swap
+  candidates closer than ~1.2e-5 · chunk extent² (nn_pallas.py:50-57), so
+  ``found`` agrees on >= 0.999 of the queries and the chosen d² lies
+  within 2 · 1.2e-5 · extent² of the port's (the bound
+  tests/test_nn_pallas.py uses)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.spatial import cKDTree
+
+from tpu3dtk.ops import nn_pallas as npl
+from tpu3dtk_torch import interop
+from tpu3dtk_torch.ops import nn as tnn
+from tpu3dtk_torch.ops import nn_cell_list as ncl
+from tpu3dtk_torch.ops import nn_cell_list_cuda
+
+_jbuild = jax.jit(
+    npl.build_cell_list_model, static_argnames=("dims", "RB", "perm")
+)
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a))
+
+
+def _oracle(q, qmask, m, mmask, md2):
+    """Exact NN in f64 over the masked-in model: (idx into m, d2, found)."""
+    midx = np.flatnonzero(mmask)
+    if len(midx) == 0:
+        return np.zeros(len(q), np.int64), np.full(len(q), np.inf), np.zeros(len(q), bool)
+    d, k = cKDTree(m[midx].astype(np.float64)).query(q.astype(np.float64))
+    return midx[k], d**2, qmask & (d**2 < md2)
+
+
+def _city_cloud(rng, n):
+    """A ground plane plus a facade, with the vertical axis first: the
+    shape that makes the axis permutation of the spec matter (the
+    identity permutation is not the best one)."""
+    ng = n * 2 // 3
+    g = np.stack([rng.uniform(0, 3000, ng), rng.normal(0, 1, ng),
+                  rng.uniform(0, 3000, ng)], axis=1)
+    nf = n - ng
+    f = np.stack([rng.uniform(0, 3000, nf), rng.uniform(0, 900, nf),
+                  np.full(nf, 1500.0) + rng.normal(0, 1, nf)], axis=1)
+    return np.concatenate([g, f]).astype(np.float32)[:, [1, 2, 0]]
+
+
+def _build_both(model, mmask, spec, max_dist):
+    perm = tuple(spec["perm"])
+    jclm, joob = _jbuild(
+        jnp.asarray(model), jnp.asarray(mmask), jnp.asarray(spec["origin"]),
+        jnp.float32(max_dist), dims=spec["dims"], RB=spec["RB"], perm=perm,
+    )
+    tclm, toob = ncl.build_cell_list_model(
+        _t(model), _t(mmask), spec["origin"], max_dist,
+        dims=spec["dims"], RB=spec["RB"], perm=perm,
+    )
+    return jclm, int(joob), tclm, int(toob)
+
+
+def _chained_both(q, qmask, jclm, tclm, spec, md2, **over):
+    kw = dict(dims=spec["dims"], RB=spec["RB"], chunk=spec["chunk"],
+              perm=tuple(spec["perm"]), cap_over=spec["cap_over"])
+    kw.update(over)
+    jout = npl.nn_cell_list_chained(
+        jnp.asarray(q), jnp.asarray(qmask), jclm, jnp.float32(md2), **kw
+    )
+    tout = ncl.nn_cell_list_chained(_t(q), _t(qmask), tclm, md2, **kw)
+    return [np.asarray(x) for x in jout], [x.numpy() for x in tout]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "city"])
+def test_cell_list_spec_equals_jax(rng, kind):
+    if kind == "uniform":
+        clouds = [rng.uniform(0, 600, (3000, 3)).astype(np.float32) for _ in range(3)]
+        max_dist = 25.0
+    else:
+        clouds = [_city_cloud(rng, 6000) + np.float32(5 * k) for k in range(3)]
+        max_dist = 150.0
+    kw = dict(
+        headroom=2.0, model_sets=clouds, queries=clouds,
+        pairs=[(i - 1, i) for i in range(1, len(clouds))],
+    )
+    want = npl.cell_list_spec(np.concatenate(clouds), max_dist, **kw)
+    got = ncl.cell_list_spec(np.concatenate(clouds), max_dist, **kw)
+    assert want is not None and got is not None
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    if kind == "city":
+        assert tuple(got["perm"]) != (0, 1, 2)  # the perm search mattered
+    # the simple forms too: union model, with and without queries
+    for extra in ({}, {"queries": clouds[:2]}):
+        w = npl.cell_list_spec(clouds[0], max_dist, **extra)
+        g = ncl.cell_list_spec(clouds[0], max_dist, **extra)
+        for k in w:
+            np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "city"])
+def test_model_and_plan_equal_jax(rng, kind):
+    """build_cell_list_model and cell_list_plan_device entry for entry."""
+    if kind == "uniform":
+        model = rng.uniform(0, 500, (3000, 3)).astype(np.float32)
+        max_dist = 25.0
+    else:
+        model = _city_cloud(rng, 5000)
+        max_dist = 150.0
+    M = len(model)
+    mmask = rng.uniform(size=M) > 0.2
+    query = (model[rng.permutation(M)[:1111]] + rng.normal(0, 3, (1111, 3))).astype(np.float32)
+    # snap some points onto cell faces: the f32 division must bin them alike
+    query[:50] = np.round(query[:50] / max_dist) * max_dist
+    qmask = rng.uniform(size=len(query)) > 0.1
+    spec = npl.cell_list_spec(model[mmask], max_dist, queries=[query[qmask]])
+    jclm, joob, tclm, toob = _build_both(model, mmask, spec, max_dist)
+    assert joob == toob == 0
+    np.testing.assert_array_equal(tclm.msrc.numpy(), np.asarray(jclm.msrc))
+    np.testing.assert_array_equal(tclm.cell_start.numpy(), np.asarray(jclm.cell_start))
+    np.testing.assert_array_equal(
+        tclm.model_sorted.numpy()[:, :3], np.asarray(jclm.model_sorted)[:3].T
+    )
+    assert not tclm.model_sorted.numpy()[:, 3].any()
+    assert tclm.cell == float(jclm.cell)
+    perm = tuple(spec["perm"])
+    jt, jq, jorder, jmax, joobq = npl.cell_list_plan_device(
+        jnp.asarray(query), jnp.asarray(qmask), jclm,
+        dims=spec["dims"], chunk=spec["chunk"], perm=perm,
+    )
+    tt, tq, torder, tmax, toobq = ncl.cell_list_plan_device(
+        _t(query), _t(qmask), tclm, dims=spec["dims"], chunk=spec["chunk"], perm=perm,
+    )
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(torder.numpy(), np.asarray(jorder))
+    np.testing.assert_array_equal(tq.numpy()[:, :3], np.asarray(jq)[:3].T)
+    assert int(tmax) == int(jmax) and int(toobq) == int(joobq) == 0
+    assert tt.dtype == torch.int32 and tt.shape == (-(-len(query) // spec["chunk"]), 29)
+
+
+def _cases(rng):
+    # tests/test_nn_pallas.py:37-50 (masked and sparse), :63-103 (chained)
+    M = 1000
+    m = rng.uniform(0, 2000, (M, 3)).astype(np.float32)
+    q = rng.uniform(0, 2000, (300, 3)).astype(np.float32)
+    yield "masked_sparse", m, rng.uniform(size=M) > 0.3, q, np.ones(300, bool), 50.0
+    M, Q = 6000, 2000
+    model = rng.uniform(0, 500, (M, 3)).astype(np.float32)
+    query = (model[rng.permutation(Q) % M] + rng.normal(0, 3, (Q, 3))).astype(np.float32)
+    yield "chained_6000x2000", model, np.ones(M, bool), query, np.ones(Q, bool), 25.0
+    c = _city_cloud(rng, 5000)
+    yield "city", c, np.ones(len(c), bool), (c[::3] + rng.normal(0, 20, (len(c[::3]), 3))).astype(np.float32), np.ones(len(c[::3]), bool), 150.0
+
+
+@pytest.mark.parametrize("case", ["masked_sparse", "chained_6000x2000", "city"])
+def test_chained_matches_oracle_and_jax(rng, case):
+    name, m, mmask, q, qmask, max_dist = next(c for c in _cases(rng) if c[0] == case)
+    md2 = max_dist**2
+    spec = npl.cell_list_spec(m[mmask], max_dist, queries=[q])
+    assert spec is not None
+    jclm, _, tclm, _ = _build_both(m, mmask, spec, max_dist)
+    launches = nn_cell_list_cuda.cell_list_rows_kernel.launches
+    (jidx, jd2, jfound, jovf, joob), (tidx, td2, tfound, tovf, toob) = _chained_both(
+        q, qmask, jclm, tclm, spec, md2
+    )
+    assert nn_cell_list_cuda.cell_list_rows_kernel.launches == launches  # CPU: plain K2
+    assert not tovf and int(toob) == 0 and not jovf and int(joob) == 0
+    oidx, od2, ofound = _oracle(q, qmask, m, mmask, md2)
+    np.testing.assert_array_equal(tfound, ofound)
+    np.testing.assert_array_equal(tidx[ofound], oidx[ofound])
+    np.testing.assert_allclose(td2[ofound], od2[ofound], rtol=1e-5, atol=1e-4)
+    # the port's own brute engine: identical answers where found
+    bidx, bd2, bfound = tnn.nn_brute(_t(q), _t(qmask), _t(m), _t(mmask), md2)
+    np.testing.assert_array_equal(tfound, bfound.numpy())
+    np.testing.assert_array_equal(tidx[tfound], bidx.numpy()[tfound])
+    np.testing.assert_array_equal(td2[tfound], bd2.numpy()[tfound])
+    # the JAX chain, within its rank bound
+    assert (jfound == tfound).mean() >= 0.999
+    both = jfound & tfound
+    ext = float(np.ptp(m[mmask], axis=0).max())
+    gap = jd2[both] - td2[both]
+    assert gap.min() > -1e-2 and gap.max() < 2.0 * 1.2e-5 * ext**2
+    # the host-planned form gives the same answers
+    hidx, hd2, hfound = ncl.nn_cell_list(m, mmask, q, qmask, md2, device="cpu")
+    np.testing.assert_array_equal(hfound, ofound)
+    np.testing.assert_array_equal(hidx[ofound], oidx[ofound])
+    np.testing.assert_allclose(hd2[ofound], od2[ofound], rtol=1e-5, atol=1e-4)
+
+
+def test_boundary_exclusion():
+    """Strict d² < max_dist2 (tests/test_nn_pallas.py:53-60), through the
+    host-planned and the chained form."""
+    m = np.asarray([[10.0, 0.0, 0.0]], np.float32)
+    q = np.asarray([[0.0, 0.0, 0.0]], np.float32)
+    one = np.ones(1, bool)
+    for md2, want in ((100.0, False), (100.01, True)):
+        _, d2, found = ncl.nn_cell_list(m, one, q, one, md2, device="cpu")
+        assert bool(found[0]) is want and d2[0] == 100.0
+        _, _, jfound = npl.nn_cell_list(m, one, q, one, md2)
+        assert bool(jfound[0]) is want
+        spec = ncl.cell_list_spec(np.concatenate([m, q]), float(np.sqrt(md2)))
+        clm, _ = ncl.build_cell_list_model(
+            _t(m), _t(one), spec["origin"], float(np.sqrt(md2)),
+            dims=spec["dims"], RB=spec["RB"], perm=spec["perm"],
+        )
+        _, d2, found, ovf, oob = ncl.nn_cell_list_chained(
+            _t(q), _t(one), clm, md2, dims=spec["dims"], RB=spec["RB"],
+            chunk=spec["chunk"], perm=spec["perm"],
+        )
+        assert bool(found[0]) is want and float(d2[0]) == 100.0
+        assert not bool(ovf) and int(oob) == 0
+
+
+def _overflow_setup(rng):
+    M, Q = 6000, 2000
+    model = rng.uniform(0, 500, (M, 3)).astype(np.float32)
+    query = (model[rng.permutation(Q) % M] + rng.normal(0, 3, (Q, 3))).astype(np.float32)
+    spec = npl.cell_list_spec(model, 25.0, queries=[query])
+    return model, np.ones(M, bool), query, np.ones(Q, bool), spec
+
+
+def test_forced_overflow_repaired_by_lane(rng):
+    """RB far below the chunks' requirement: every range is clamped, the
+    lane (brute) repairs the flagged queries, and the answers stay exact
+    in both packages."""
+    m, mmask, q, qmask, spec = _overflow_setup(rng)
+    assert spec["RB"] > 128
+    small = dict(spec, RB=128)
+    jclm, _, tclm, _ = _build_both(m, mmask, small, 25.0)
+    table, _qs, order, maxlen, _ = ncl.cell_list_plan_device(
+        _t(q), _t(qmask), tclm, dims=spec["dims"], chunk=spec["chunk"],
+        perm=tuple(spec["perm"]),
+    )
+    assert int(maxlen) > 128  # the clamp bites
+    (jidx, jd2, jfound, jovf, _), (tidx, td2, tfound, tovf, _) = _chained_both(
+        q, qmask, jclm, tclm, small, 625.0
+    )
+    assert not tovf and not jovf  # within the lane's capacity
+    oidx, od2, ofound = _oracle(q, qmask, m, mmask, 625.0)
+    np.testing.assert_array_equal(tfound, ofound)
+    np.testing.assert_array_equal(tidx[ofound], oidx[ofound])
+    assert (jfound == tfound).mean() >= 0.999
+    # without the lane the clamped kernel alone misses neighbours
+    tc = ncl.clamp_table(table, 128)
+    rows, _ = ncl.cell_list_rows(tc, _qs, tclm.model_sorted, spec["chunk"])
+    _, _, f0 = ncl.cell_list_post_device(rows, order, _t(q), _t(qmask), tclm, 625.0)
+    assert (f0.numpy() != ofound).any()
+    # and on the unclamped table it needs no lane
+    rows, _ = ncl.cell_list_rows(table, _qs, tclm.model_sorted, spec["chunk"])
+    _, _, fu = ncl.cell_list_post_device(rows, order, _t(q), _t(qmask), tclm, 625.0)
+    np.testing.assert_array_equal(fu.numpy(), ofound)
+
+
+def test_lane_capacity_exceeded_sets_overflow(rng):
+    m, mmask, q, qmask, spec = _overflow_setup(rng)
+    small = dict(spec, RB=128)
+    jclm, _, tclm, _ = _build_both(m, mmask, small, 25.0)
+    (_, _, _, jovf, _), (_, _, _, tovf, _) = _chained_both(
+        q, qmask, jclm, tclm, small, 625.0, cap_over=256
+    )
+    assert bool(tovf) and bool(jovf)
+
+
+def test_idle_lane_changes_nothing(rng):
+    """On the card the lane runs every call; with no query flagged it
+    must leave the answers as they are."""
+    m, mmask, q, qmask, spec = _overflow_setup(rng)
+    _, _, tclm, _ = _build_both(m, mmask, spec, 25.0)
+    idx, d2, found, _, _ = ncl.nn_cell_list_chained(
+        _t(q), _t(qmask), tclm, 625.0, dims=spec["dims"], RB=spec["RB"],
+        chunk=spec["chunk"], perm=tuple(spec["perm"]),
+    )
+    none = torch.zeros(len(q), dtype=torch.bool)
+    i2, d22, f2 = ncl._lane_fix(
+        none, _t(q), idx.clone(), d2.clone(), found.clone(), tclm, 625.0, 8192
+    )
+    assert torch.equal(i2, idx) and torch.equal(d22, d2) and torch.equal(f2, found)
+
+
+def test_query_outside_box_counts_oob(rng):
+    m, mmask, q, qmask, spec = _overflow_setup(rng)
+    q = q.copy()
+    q[:7] += 1e5  # far outside the grid box
+    jclm, _, tclm, _ = _build_both(m, mmask, spec, 25.0)
+    (_, _, jfound, _, joob), (_, _, tfound, _, toob) = _chained_both(
+        q, qmask, jclm, tclm, spec, 625.0
+    )
+    assert int(toob) == int(joob) == 7
+    assert not tfound[:7].any()
+    # a model point outside the box is counted at build time
+    m2 = m.copy()
+    m2[0] -= 1e5
+    _, joobm, _, toobm = _build_both(m2, mmask, spec, 25.0)
+    assert toobm == joobm == 1
+
+
+def test_all_masked_model_and_empty_ranges(rng):
+    """No candidate at all: the port answers "not found".  (The JAX
+    package maps the kernel's default row 0 to a model point without
+    testing its mask, so it can report a masked point as found; see
+    ROADMAP queue 3.)"""
+    m, _, q, qmask, spec = _overflow_setup(rng)
+    q = m[:500].copy()  # queries ON model points: d² = 0 to a masked point
+    qmask = np.ones(500, bool)
+    none = np.zeros(len(m), bool)
+    jclm, _, tclm, _ = _build_both(m, none, spec, 25.0)
+    (_, _, jfound, _, _), (_, td2, tfound, tovf, toob) = _chained_both(
+        q, qmask, jclm, tclm, spec, 625.0
+    )
+    assert not tfound.any() and not tovf and int(toob) == 0
+    assert np.isfinite(td2).all()
+    _, _, hfound = ncl.nn_cell_list(m, none, q, qmask, 625.0, device="cpu")
+    assert not hfound.any()
+    # one far-away valid point: every range of every chunk is empty
+    one = none.copy()
+    one[-1] = True
+    m2 = m.copy()
+    m2[-1] = [480.0, 480.0, 480.0]
+    q2 = rng.uniform(0, 100, (300, 3)).astype(np.float32)
+    _, _, tclm2, _ = _build_both(m2, one, spec, 25.0)
+    rows_before = ncl.cell_list_plan_device(
+        _t(q2), _t(np.ones(300, bool)), tclm2, dims=spec["dims"],
+        chunk=spec["chunk"], perm=tuple(spec["perm"]),
+    )[0]
+    assert int(rows_before[:, 4::3].sum()) == 0
+    _, _, f2, _, _ = ncl.nn_cell_list_chained(
+        _t(q2), _t(np.ones(300, bool)), tclm2, 625.0, dims=spec["dims"],
+        RB=spec["RB"], chunk=spec["chunk"], perm=tuple(spec["perm"]),
+    )
+    assert not f2.any()
+
+
+def test_plain_k2_contract(rng):
+    """cell_list_rows on a hand-made table: rows are start + shift + j,
+    the earliest range wins ties, an empty chunk keeps row 0 and +inf."""
+    model = torch.full((512, 4), ncl.PAD_COORD)
+    model[:, 3] = 0
+    pts = torch.arange(300, dtype=torch.float32)
+    model[:300, 0] = pts
+    model[:300, 1:3] = 0
+    model[300, :3] = torch.tensor([5.0, 0.0, 0.0])  # a duplicate of row 5
+    q = torch.zeros((256, 4))
+    q[:128, 0] = torch.arange(128, dtype=torch.float32) + 0.25
+    q[128:, 0] = 5.0
+    table = torch.zeros((1, 29), dtype=torch.int32)
+    table[0, 2:5] = torch.tensor([256, 44, 1])    # range 0: row 300 only
+    table[0, 5:8] = torch.tensor([0, 0, 200])     # range 1: rows 0..199
+    rows, score = ncl.cell_list_rows(table, q, model, 128 * 2)
+    assert rows.dtype == torch.int32 and score.dtype == torch.float32
+    np.testing.assert_array_equal(rows[:128].numpy(), np.r_[0:5, 300, 6:128])
+    assert (rows[128:] == 300).all() and (score[128:] == 0).all()
+    empty = torch.zeros((1, 29), dtype=torch.int32)
+    rows, score = ncl.cell_list_rows(empty, q, model, 256)
+    assert (rows == 0).all() and torch.isinf(score).all()
+    with pytest.raises(ValueError):
+        nn_cell_list_cuda.cell_list_rows_kernel(table, q, model, 256)  # CPU tensors
+
+
+def test_jax_cell_list_state_carries_over(rng):
+    """interop: a JAX CellListModel and spec given as numpy give the
+    port's chain the same answers as its own build."""
+    m, mmask, q, qmask, spec = _overflow_setup(rng)
+    jclm, _, tclm, _ = _build_both(m, mmask, spec, 25.0)
+    state = {
+        "clm": {k: np.asarray(getattr(jclm, k)) for k in jclm._fields},
+        "spec": spec,
+    }
+    scans, params, clm2, spec2 = interop.scans_from_numpy([], None, cell_list=state)
+    assert scans == [] and spec2["dims"] == tuple(spec["dims"])
+    for k in ("points", "mmask", "model_sorted", "msrc", "cell_start", "origin"):
+        assert torch.equal(getattr(clm2, k), getattr(tclm, k)), k
+    assert clm2.cell == tclm.cell
+    kw = dict(dims=spec2["dims"], RB=spec2["RB"], chunk=spec2["chunk"], perm=spec2["perm"])
+    a = ncl.nn_cell_list_chained(_t(q), _t(qmask), clm2, 625.0, **kw)
+    b = ncl.nn_cell_list_chained(_t(q), _t(qmask), tclm, 625.0, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

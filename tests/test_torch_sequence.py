@@ -91,6 +91,7 @@ def test_run_single_matches_run():
     a, params = mk()
     b, _ = mk()
     for s in a + b:
+        s.device = "cpu"
         s.set_reduction(25.0, 0)
     TSeq(params=params, metascan=True, device="cpu").run(a)
     reg = TSeq(params=params, metascan=True, device="cpu")
@@ -184,7 +185,7 @@ def test_frames_text_identical_for_equal_matrices(tmp_path):
     "flag,item",
     [
         (["-L", "4"], "A8"), (["-G", "1"], "A7"), (["-C", "10"], "A7"),
-        (["-n", "x.net"], "A7"), (["--distributed"], "slice E"),
+        (["-C", "0"], "A7"), (["--distributed"], "slice E"),
         (["--cache-mb", "64"], "slice C"), (["--plane"], "A12"),
         (["--normalShoot"], "A12"), (["--saveOct"], "slice D"),
         (["--loadOct"], "slice D"), (["-a", "3"], "A11"),

@@ -19,6 +19,7 @@ import make_golden  # noqa: E402
     [
         ("synth_loop", dict(n_scans=5, n_pts=500, seed=7)),
         ("synth_ring", dict(n_scans=3, n_pts=400, seed=11)),
+        ("synth_city", dict(n_scans=2, n_pts=2000, seed=23)),
     ],
 )
 def test_synth_equals_make_golden(name, kw):
@@ -41,4 +42,18 @@ def test_write_scan_dir_roundtrip(tmp_path):
     assert [r.identifier for r in raws] == ["000", "001"]
     for raw, loc, To in zip(raws, locs, odo):
         np.testing.assert_allclose(raw.xyz, loc, atol=1e-5)
-        np.testing.assert_allclose(Scan.from_raw(raw).transMatOrg, To, atol=1e-9)
+        np.testing.assert_allclose(
+            Scan.from_raw(raw, device="cpu").transMatOrg, To, atol=1e-9
+        )
+
+
+def test_net_file_roundtrip(tmp_path):
+    from tpu3dtk.models.graphslam import read_net_graph as jax_read
+    from tpu3dtk_torch.models.graphslam import read_net_graph
+
+    links = [(i, i + 1) for i in range(12)] + [(0, 12)]
+    path = str(tmp_path / "bremen.net")
+    synth.write_net_graph(path, 13, links)
+    assert open(path).read().split()[:2] == ["13", "13"]
+    np.testing.assert_array_equal(read_net_graph(path), links)
+    np.testing.assert_array_equal(jax_read(path), links)

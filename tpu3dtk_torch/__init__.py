@@ -5,14 +5,17 @@ it is) with the same layout and contracts: padded ``[N, 3]`` clouds with
 masks, strict ``d² < max_dist2`` acceptance, ``.frames`` files
 bit-compatible with the AlgoType tags.  Plain tensor code is PyTorch;
 every kernel the JAX package wrote in Pallas becomes a hand-written CUDA
-kernel under ``csrc/`` (see ``ops/nn_cuda.py``).
+kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
 
 - ``core``   math3d (numpy/torch backends), Scan
 - ``io``     scan directories, formats, .frames, prefetch cache
-- ``ops``    voxel reduction, brute NN (plain torch + CUDA kernel)
-- ``models`` minimizers, ICP, sequential registration
+- ``ops``    voxel reduction, brute NN and cell-list NN (each a plain
+  torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``)
+- ``models`` minimizers, ICP (while-style loop and the chained cell-list
+  engine), sequential registration, LUM graph relaxation (host path)
 - ``utils``  named-phase metrics
-- ``cli``    torchslam (the slam6D-style driver)
+- ``cli``    torchslam (the slam6D-style command; sequential ICP and the
+  ``-n`` net-graph LUM)
 
 This package imports neither ``jax`` nor ``tpu3dtk``.
 """
@@ -26,8 +29,10 @@ __version__ = "0.1.0"
 
 def default_device() -> torch.device:
     """The device the port runs on when a caller names none: the first
-    CUDA card, or the CPU when there is no card.  This is the only place
-    the CPU is chosen implicitly."""
+    CUDA card.  The CPU is never chosen implicitly: without a card this
+    raises, and a caller who wants the CPU asks for it."""
     if torch.cuda.is_available():
         return torch.device("cuda")
-    return torch.device("cpu")
+    raise RuntimeError(
+        "no CUDA device; pass --device cpu / device='cpu' to run on the CPU"
+    )

@@ -2,7 +2,9 @@
 reference ``slam6D`` driver's flags (src/slam6d/slam6D.cc:158-367), on
 PyTorch and CUDA.
 
-Ported: sequential ICP registration (the default path) with
+Ported: sequential ICP registration (the default path) and, with
+-n/--net, LUM over an explicit pose graph after it (the bremen_city
+workflow), with
   -s/--start -e/--end --scans  scan range
   -f/--format          scan format (uos, uosr, xyz, ...; text formats)
   -m/--max -M/--min -u range and custom point filters (cm)
@@ -14,10 +16,13 @@ Ported: sequential ICP registration (the default path) with
   --epsICP             ICP convergence epsilon
   -a/--algo            minimizer 1=quat 2=svd
   --metascan           match against union of previous scans
+  -n/--net             explicit .net pose graph: LUM over its links
+  -I/--iterSLAM -D/--distSLAM --epsSLAM  LUM iterations, distance, epsilon
   --frames-out --continue --prefetch --exportAllPoints -q
-  --device             cpu | cuda[:N] (default: the card when present)
+  --device             cuda[:N] | cpu (default: the first card; without a
+                       card the run stops unless --device cpu is given)
 
-The flags of paths not ported yet (-L, -G, -C, -n, --distributed,
+The flags of paths not ported yet (-L, -G, -C, --distributed,
 --cache-mb, --plane, --normalShoot, --saveOct, --loadOct, -a 3..10)
 stop with an error naming their ROADMAP item.
 """
@@ -38,7 +43,6 @@ _NOT_PORTED = (
     ("-L/--loop6DAlgo", lambda a: a.loop6DAlgo > 0, "A8/A9 (ELCH, GraphPipeline)"),
     ("-G/--graphSlam6DAlgo", lambda a: a.graphSlam6DAlgo > 0, "A7/A9 (LUM, GraphPipeline)"),
     ("-C/--clpairs", lambda a: a.clpairs > -1, "A7 (graphslam clpairs graph)"),
-    ("-n/--net", lambda a: a.net is not None, "A7 (graphslam .net graphs)"),
     ("--distributed", lambda a: a.distributed, "slice E (multi-device)"),
     ("--cache-mb", lambda a: a.cache_mb > 0, "slice C (models/streaming)"),
     ("--plane", lambda a: a.point_to_plane, "A12 (normals-based pairing)"),
@@ -106,8 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true")
     p.add_argument(
         "--device", default=None,
-        help="torch device to run on (default: cuda when a card is "
-        "present, else cpu)",
+        help="torch device to run on: cuda[:N] or cpu (default: the first "
+        "CUDA card; without a card the run stops with an error unless "
+        "--device cpu is given)",
     )
     return p
 
@@ -226,6 +231,23 @@ def main(argv=None) -> int:
             params=params, metascan=args.metascan, device=device
         )
         results = reg.run(scans)
+        if args.net:
+            # explicit .net graph: sequential ICP, then LUM over the
+            # given links (bremen_city workflow)
+            from ..models import graphslam as gs
+
+            links = gs.read_net_graph(args.net)
+            gs.do_graph_slam(
+                scans, links,
+                gs.LumParams(
+                    max_dist_match2=(
+                        args.distSLAM**2 if args.distSLAM > 0 else args.dist**2
+                    ),
+                    iterations=args.iterSLAM,
+                    epsilon=args.epsSLAM,
+                    device=device,
+                ),
+            )
     dt = (time.perf_counter() - t0) * 1000.0
     if not args.quiet:
         for r in results:

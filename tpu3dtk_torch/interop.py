@@ -1,4 +1,5 @@
-"""Carry scan state across from the JAX package as plain numpy.
+"""Carry scan and cell-list state across from the JAX package as plain
+numpy.
 
 :func:`scans_from_numpy` builds the port's :class:`~.core.scan.Scan`
 objects from what a ``tpu3dtk`` ``TPUScan`` holds — identifier, raw xyz,
@@ -9,6 +10,11 @@ It imports neither ``jax`` nor ``tpu3dtk``: callers pass numpy arrays, e.g.
 s.reduced_local(), "transMatOrg": s.transMatOrg, ...}``.  Feeding the
 JAX package's reduced points lets both packages register the same
 points (random reduction cannot match bit for bit across them).
+
+With ``cell_list`` it also carries the chained NN engine's state: a
+``tpu3dtk.ops.nn_pallas.CellListModel`` and a ``cell_list_spec`` dict,
+their fields given as numpy arrays, become the port's
+:class:`~.ops.nn_cell_list.CellListModel` and spec.
 """
 
 from __future__ import annotations
@@ -17,22 +23,57 @@ from typing import Iterable, Mapping
 
 import numpy as np
 
+import torch
+
 from .core.scan import Scan
 from .models.icp import IcpParams
+from .ops.nn_cell_list import CellListModel
 
 __all__ = ["scans_from_numpy"]
 
 
+def _cell_list_from_numpy(state: Mapping, device) -> tuple[CellListModel, dict]:
+    """``state``: {"clm": the JAX CellListModel's fields as numpy
+    (``model_sorted`` in its [8, Mpad] transposed layout), "spec": the
+    JAX cell_list_spec dict}.  Returns the port's model on ``device``
+    (sorted coordinates as [Mpad, 4]) and spec."""
+    c = state["clm"]
+    ms = np.asarray(c["model_sorted"], np.float32)
+    ms4 = np.zeros((ms.shape[1], 4), np.float32)
+    ms4[:, :3] = ms[:3].T
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    clm = CellListModel(
+        points=t(c["points"], np.float32),
+        mmask=t(c["mmask"], bool),
+        model_sorted=t(ms4, np.float32),
+        msrc=t(c["msrc"], np.int32),
+        cell_start=t(c["cell_start"], np.int32),
+        origin=t(c["origin"], np.float32),
+        cell=float(np.float32(c["cell"])),
+    )
+    spec = dict(state["spec"])
+    spec["origin"] = np.asarray(spec["origin"], np.float32)
+    spec["dims"] = tuple(int(d) for d in spec["dims"])
+    spec["perm"] = tuple(int(p) for p in spec.get("perm", (0, 1, 2)))
+    return clm, spec
+
+
 def scans_from_numpy(
-    scans: Iterable[Mapping], icp_params: Mapping | None = None
-) -> tuple[list[Scan], IcpParams]:
+    scans: Iterable[Mapping], icp_params: Mapping | None = None,
+    cell_list: Mapping | None = None, device="cpu",
+):
     """Build Scans from mappings with keys ``identifier``, ``xyz``
     ([N,3]) and optionally ``reduced_local`` ([Nr,3]), ``transMatOrg``,
     ``transMat``, ``dalignxf`` ([4,4]), ``frames`` (list of (4x4,
     AlgoType int)), ``reduction_voxel``, ``reduction_nrpts``.  Missing
     poses default to the identity (``transMat`` to ``transMatOrg``).
     ``icp_params``: the JAX ``IcpParams`` fields as a dict; unknown
-    fields raise."""
+    fields raise.  Returns (scans, params), and with ``cell_list``
+    ({"clm": ..., "spec": ...}, see the module docstring) (scans, params,
+    clm, spec) with the cell-list model's tensors on ``device``."""
     out = []
     for d in scans:
         org = np.array(d.get("transMatOrg", np.eye(4)), dtype=np.float64)
@@ -53,4 +94,6 @@ def scans_from_numpy(
             s._reduced_local = np.array(d["reduced_local"], dtype=np.float64)
         out.append(s)
     params = IcpParams(**dict(icp_params or {}))
-    return out, params
+    if cell_list is None:
+        return out, params
+    return (out, params, *_cell_list_from_numpy(cell_list, device))

@@ -17,7 +17,10 @@ Each iteration, on the device of the clouds:
 
 The JAX package runs this as one ``lax.while_loop``; here it is a Python
 loop that reads four scalars back from the device once per iteration
-for the stop tests.  Pairing semantics match ``SearchTree::getPtPairs``
+for the stop tests.  :func:`icp_pair_chained` is the second engine, for
+large models: nearest neighbours through the cell-list chain (kernel K2,
+``ops.nn_cell_list``), the stop tests evaluated on the device and read
+back every fourth iteration.  Pairing semantics match ``SearchTree::getPtPairs``
 (src/slam6d/searchTree.cc:91-188): model points in the model's current
 global frame, target points in the target's current estimate, matches
 at or beyond max_dist_match2 rejected.
@@ -32,12 +35,17 @@ import torch
 
 from ..core import math3d
 from ..ops import nn as nn_ops
+from ..utils.metrics import metrics
 from . import minimizers as mz
 
 __all__ = [
-    "IcpParams", "IcpResult", "icp_pair", "icp_pair_seq",
+    "IcpParams", "IcpResult", "icp_pair", "icp_pair_chained", "icp_pair_seq",
     "register_sequence_device",
 ]
+
+# metrics counter: loop trips of the chained engine (one cell-list NN
+# call each; the reported iterations stop counting once a match is done)
+CHAINED_TRIPS = "chained_icp_loop_trips"
 
 # pose-fixpoint thresholds of the JAX package (f32 values): an increment
 # below 100 um / ~1e-5 rad is the f32 stats-noise floor
@@ -59,6 +67,10 @@ class IcpResult(NamedTuple):
     error: float  # final RMS point-to-point error (f64)
     iterations: int  # iterations executed
     n_pairs: float  # pairs in the last iteration
+    # chained engine only: > 0 when a cell-list exactness guard fired
+    # (lane overflow or a point outside the grid box) and the caller
+    # must redo the match with the brute engine
+    maxocc: int = 0
 
 
 def _find_pairs(model, mmask, tgt_global, tmask, max_dist2):
@@ -177,6 +189,119 @@ def icp_pair_seq(
         max_dist_match2=max_dist_match2, epsilon=epsilon,
         max_iterations=max_iterations, minimizer=minimizer,
         subsample=subsample, seed=seed, pairing=pairing,
+    )
+
+
+def _chain_transform(T, target_local):
+    return math3d.transform3(T, target_local).to(torch.float32)
+
+
+def _chain_update_conv(model, idx, found, tgt_global, T, conv, eps, align_fn):
+    """One chained-ICP update with the ON-DEVICE two-delta convergence
+    state ``conv`` = (err, prev, prev2, done, n_iters): once done, the
+    pose freezes (align = I) so queued iterations become no-ops and the
+    host polls the done flag sparsely while iteration-granular
+    convergence still takes effect (icp6D.cc:266-279).  Counterpart:
+    ``tpu3dtk/models/icp.py::_chain_update_conv``."""
+    err_prev, prev, _prev2, done, n_it = conv
+    stats = mz.pair_stats(model[idx], tgt_global, found)
+    enough = stats.n > 3
+    align, err = align_fn(stats)
+    active = enough & ~done
+    eye4 = torch.eye(4, dtype=torch.float32, device=T.device)
+    align = torch.where(active, align, eye4)
+    T_new = align @ T
+    conv_now = ((err - err_prev).abs() < eps) & ((err - prev).abs() < eps)
+    # pose-fixpoint test (see icp_pair): increments at the f32 noise
+    # floor (<100 um) make no further progress — stop
+    pose_conv = (torch.linalg.norm(align[:3, 3]) < _POSE_T) & (
+        torch.linalg.norm(align[:3, :3] - eye4[:3, :3]) < _POSE_R
+    )
+    done_new = done | conv_now | (pose_conv & active) | ~enough
+    n_new = n_it + (~done).to(torch.int32)
+    return T_new, (err, err_prev, prev, done_new, n_new), stats.n
+
+
+def icp_pair_chained(
+    model, mmask, target_local, tmask, T0, *,
+    max_dist_match2, epsilon,
+    max_iterations: int = 50,
+    minimizer: str = "quat",
+    spec=None,
+    check_every: int = 4,
+) -> IcpResult:
+    """ICP for LARGE models through the cell-list chain (kernel K2) —
+    the port of ``tpu3dtk/models/icp.py::icp_pair_chained``.
+
+    Each iteration is a chain of device ops (transform, device query
+    plan, cell-list kernel, pair statistics and update) with no host
+    read inside: the two-delta convergence test runs ON DEVICE every
+    iteration (the pose freezes once converged) and the host polls the
+    done flag only every ``check_every`` iterations, so the
+    per-iteration NN cost is O(Q · occupancy) instead of O(Q · M).
+
+    Exactness guards: the per-iteration lane-overflow and
+    out-of-grid-box scalars accumulate on the device; if either fired,
+    the caller must redo the match with the brute engine (returned via
+    ``maxocc`` > 0).  ``spec`` comes from
+    ``ops.nn_cell_list.cell_list_spec``; without one it is sized over
+    the model, and the brute engine runs when no spec fits.
+    """
+    from ..ops import nn_cell_list as ncl
+
+    align_fn = mz.get_minimizer(minimizer)
+    dev = model.device
+    model = model.to(torch.float32).contiguous()
+    target_local = target_local.to(torch.float32)
+    T = torch.as_tensor(T0, dtype=torch.float32, device=dev)
+    max_dist = float(np.sqrt(max_dist_match2))
+    if spec is None:
+        spec = ncl.cell_list_spec(model[mmask].cpu().numpy(), max_dist)
+    if spec is None:
+        return icp_pair(
+            model, mmask, target_local, tmask, T,
+            max_dist_match2=max_dist_match2, epsilon=epsilon,
+            max_iterations=max_iterations, minimizer=minimizer,
+        )
+    perm = tuple(spec.get("perm", (0, 1, 2)))
+    clm, oob_m = ncl.build_cell_list_model(
+        model, mmask, spec["origin"], max_dist,
+        dims=spec["dims"], RB=spec["RB"], perm=perm,
+    )
+    md2 = float(np.float32(max_dist_match2))
+    guard = torch.zeros((), dtype=torch.int32, device=dev)
+    npairs = torch.zeros((), dtype=torch.float32, device=dev)
+    big = torch.full((), float("inf"), dtype=torch.float64, device=dev)
+    conv = (
+        big, big, big,
+        torch.zeros((), dtype=torch.bool, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    eps = float(epsilon)
+    for it in range(max_iterations):
+        tgt_g = _chain_transform(T, target_local)
+        idx, _d2, found, overflow, oob_q = ncl.nn_cell_list_chained(
+            tgt_g, tmask, clm, md2, dims=spec["dims"], RB=spec["RB"],
+            chunk=spec.get("chunk", 256), perm=perm,
+            cap_over=spec.get("cap_over", 8192),
+        )
+        metrics.count(CHAINED_TRIPS)
+        T, conv, npairs = _chain_update_conv(
+            model, idx, found, tgt_g, T, conv, eps, align_fn
+        )
+        guard = torch.maximum(guard, overflow.to(torch.int32) + oob_q + oob_m)
+        if (it + 1) % check_every == 0 or it == max_iterations - 1:
+            # the one device->host read of these check_every iterations
+            done, guard_v = torch.stack([conv[3].to(torch.int32), guard]).tolist()
+            if guard_v > 0:
+                break  # exactness guard fired: caller redoes with brute
+            if done:
+                break
+    err, n_it, n, guard_v = torch.stack([
+        conv[0], conv[4].double(), npairs.double(), guard.double(),
+    ]).tolist()
+    return IcpResult(
+        T=T, error=err, iterations=int(n_it), n_pairs=n, maxocc=int(guard_v)
     )
 
 

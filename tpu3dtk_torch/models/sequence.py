@@ -5,11 +5,19 @@ extrapolation (``Scan::mergeCoordinatesWithRoboterPosition``,
 scan.cc:826-833) and metascan mode (include/slam6d/metaScan.h:41-71).
 
 The sequence is uploaded once as resident [S, N, 3] tensors; every
-match builds its model window from them on the device and runs the ICP
-loop of ``models.icp``.  Every model window goes through the brute NN
-kernel (K1), which is exact at any window size; the JAX package's
-multi-device mesh, hashed grid and chained cell-list engines are not
-ported (the cell-list kernel K2 is ROADMAP slice B).
+match builds its model window from them on the device and runs an ICP
+loop of ``models.icp``.  Two NN engines, as in the JAX package:
+
+- the brute kernel (K1), exact at any window size, inside
+  ``icp.register_sequence_device``;
+- the chained cell-list engine (K2, ``icp.icp_pair_chained``) for model
+  windows of ``chained_min`` points or more, when a cell-list spec fits
+  and its candidate volume beats brute (9·RB < window points).  A match
+  whose exactness guard fired is redone with the brute engine.
+
+The JAX package gates the chained engine on a TPU backend; the port
+gates on the sizes alone, so the CPU tests run it through the plain
+version of K2.  The multi-device mesh and the hashed grid are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +34,11 @@ from ..utils.metrics import MATCHING, metrics
 from . import icp as icp_mod
 
 __all__ = ["SequenceRegistration"]
+
+# metrics counters: matches sent to the chained engine, and those among
+# them redone by the brute engine because an exactness guard fired
+CHAINED_MATCHES = "chained_icp_matches"
+CHAINED_REDONE = "chained_icp_matches_redone_brute"
 
 _PAD = 512  # every scan's reduced points are padded to a multiple of this
 
@@ -61,6 +74,11 @@ class SequenceRegistration:
     metascan: bool = False  # ref --metascan
     extrapolate_odometry: bool = True  # ref -e / eP flag (default on)
     device: torch.device | str | None = None  # None: the package default
+    # chained cell-list ICP (K2): used when the model window reaches this
+    # many points AND the cell-list candidate volume beats brute
+    # (9*RB < window points) — the O(Q*occupancy) engine for city-scale
+    # models (see models.icp.icp_pair_chained)
+    chained_min: int = 98304
 
     def _device(self) -> torch.device:
         if self.device is None:
@@ -77,7 +95,9 @@ class SequenceRegistration:
             return []
         prep = self._prepare(scans)
         win_max = len(scans) if self.metascan else 1
-        return self._run_device(scans, prep, win_max)
+        if prep["chain_spec"] is None:
+            return self._run_device(scans, prep, win_max)
+        return [self.run_single(scans, i) for i in range(1, len(scans))]
 
     def _run_device(self, scans: list[Scan], prep: dict, win_max: int):
         dev = prep["device"]
@@ -124,6 +144,8 @@ class SequenceRegistration:
             ),
             self.params,
             str(dev),
+            self.metascan,
+            self.chained_min,
         )
         prep = getattr(self, "_prep", None)
         if prep is not None and prep["key"] == key:
@@ -139,11 +161,52 @@ class SequenceRegistration:
         prep = dict(
             key=key,
             device=dev,
+            cap=cap,
+            chain_spec=self._chain_spec(scans, cap),
             locals=torch.as_tensor(locals_pad, device=dev),
             masks=torch.as_tensor(masks, device=dev),
         )
         self._prep = prep
         return prep
+
+    def _chain_spec(self, scans: list[Scan], cap: int):
+        """Cell-list spec of the chained engine, or None when the run
+        stays on the brute engine (small windows, subsampling, or no
+        spec that fits and beats brute)."""
+        win_max = len(scans) if self.metascan else 1
+        if not (
+            self.params.pairing == "closest_point"
+            and self.params.subsample == 1
+            and win_max * cap >= self.chained_min
+        ):
+            return None
+        from ..ops import nn_cell_list as ncl
+
+        clouds = [
+            np.asarray(
+                math3d.transform3(s.transMat, s.reduced_local())
+            ).astype(np.float32)
+            for s in scans
+        ]
+        all_g = np.concatenate(clouds)
+        max_dist = float(np.sqrt(self.params.max_dist_match2))
+        if win_max <= 1:
+            # window-1 matching: the model is ONE scan per match — size
+            # RB against per-scan models and the consecutive-pair query
+            # pattern (the union overestimates by the overlap factor and
+            # declines on dense city clouds)
+            spec = ncl.cell_list_spec(
+                all_g, max_dist, headroom=2.0,
+                model_sets=clouds, queries=clouds,
+                pairs=[(i - 1, i) for i in range(1, len(clouds))],
+            )
+        else:
+            spec = ncl.cell_list_spec(
+                all_g, max_dist, headroom=2.0, queries=clouds,
+            )
+        if spec is not None and 9 * spec["RB"] < win_max * cap:
+            return spec
+        return None
 
     def run_single(self, scans: list[Scan], i: int) -> dict:
         """Register scan i against the previous scan (or the metascan of
@@ -163,8 +226,9 @@ class SequenceRegistration:
             device=dev,
         )
         T0 = torch.as_tensor(cur.transMat, dtype=torch.float32, device=dev)
-        with metrics.time(MATCHING):
-            res = icp_mod.icp_pair_seq(
+
+        def match_brute():
+            return icp_mod.icp_pair_seq(
                 prep["locals"], prep["masks"], mats, lo, i, i, T0,
                 self.params.max_dist_match2, self.params.epsilon, i,
                 max_iterations=self.params.max_iterations,
@@ -173,6 +237,32 @@ class SequenceRegistration:
                 pairing=self.params.pairing,
                 window_cap=window_cap,
             )
+
+        # per-match engine choice from the ACTUAL model-window size
+        use_chain = (
+            prep["chain_spec"] is not None
+            and window_cap * prep["cap"] >= self.chained_min
+        )
+        with metrics.time(MATCHING):
+            if use_chain:
+                model, mmask = icp_mod._window(
+                    prep["locals"], prep["masks"], mats, lo, i, window_cap
+                )
+                res = icp_mod.icp_pair_chained(
+                    model, mmask, prep["locals"][i], prep["masks"][i], T0,
+                    max_dist_match2=self.params.max_dist_match2,
+                    epsilon=self.params.epsilon,
+                    max_iterations=self.params.max_iterations,
+                    minimizer=self.params.minimizer,
+                    spec=prep["chain_spec"],
+                )
+                metrics.count(CHAINED_MATCHES)
+                if res.maxocc > 0:
+                    # cell-list guard fired: redo exactly with brute
+                    metrics.count(CHAINED_REDONE)
+                    res = match_brute()
+            else:
+                res = match_brute()
             T_res = res.T.cpu().numpy()
         _record_match(scans, i, _orthonormal(T_res))
         return {

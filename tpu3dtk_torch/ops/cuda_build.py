@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _build_locks
+_build_locks: dict[str, threading.Lock] = {}  # one per library: builds overlap
 _loaded: dict[str, ctypes.CDLL] = {}
 # nvcc's output (register and shared-memory use) of each library built
 # in this process, by library name
@@ -53,7 +54,9 @@ def find_nvcc() -> str:
 
 def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     """Compile ``sources`` (file names under csrc/) into lib<name>-<hash>.so
-    unless that file exists, then load it once per process."""
+    unless that file exists, then load it once per process.  Different
+    libraries may be loaded from different threads at once: their nvcc
+    runs overlap."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
@@ -65,6 +68,8 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     with _lock:
+        build_lock = _build_locks.setdefault(name, threading.Lock())
+    with build_lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib

@@ -1,0 +1,629 @@
+"""Cell-list nearest neighbour — the port of the non-kernel half of
+``tpu3dtk/ops/nn_pallas.py`` (the reference's CUDA uniform-grid NN,
+src/cuda/grid_kernel.cu:314-420, and the sublinear replacement for the
+kd-tree hot loop at city scale).
+
+Design, as in the JAX package (sort-based, no pointer chasing):
+
+1. Model and query points are bucketed into cells of edge ``max_dist``
+   and sorted by z-major dense cell id (ix*ny + iy)*nz + iz.
+2. Queries are processed in chunks of T sorted queries.  The 27-cell
+   neighbourhoods of every cell in a chunk's id span [lo, hi] union into
+   9 contiguous sorted-model ranges, one per (dx, dy) neighbour column.
+3. Kernel K2 ranks each chunk's queries against its 9 ranges and returns
+   the winning sorted-model row per query.
+
+Counterparts in ``tpu3dtk/ops/nn_pallas.py``: :func:`cell_list_spec`
+(``cell_list_spec``), :class:`CellListModel`, :func:`_dense_ids`,
+:func:`build_cell_list_model`, :func:`cell_list_plan_device`,
+:func:`cell_list_post_device`, :func:`_overflow_lane`,
+:func:`nn_cell_list_chained`, :func:`plan_cell_list`,
+:func:`nn_cell_list`.  :func:`cell_list_rows` is the plain PyTorch
+version of K2 (``_run_kernel``); the hand-written CUDA kernel is
+``ops/nn_cell_list_cuda.py``, and :func:`cell_list_rows_auto` picks
+between them by the tensors' device.
+
+What differs from the JAX package, on purpose:
+
+- ranking is exact f32 on direct differences (q − c)², products and sums
+  rounded one by one, not the bf16 hi/lo split on chunk-centred
+  coordinates; kernel and plain version choose identical rows;
+- the sorted clouds are stored ``[N, 4]`` (x, y, z, 0), not ``[8, N]``
+  transposed; the ``[W, 29]`` table keeps the JAX package's contents
+  (aligned start, shift, length per range) and the kernel reads
+  ``start + shift``;
+- a winner that is a masked model point is reported "not found" (the
+  JAX package does not test the winner's mask);
+- :func:`_overflow_lane` has no device-side branch to lean on: on the
+  card the lane always runs (no host read inside the chain), on the CPU
+  it runs when the overflow count, free to read there, is not zero.  The
+  results are the same either way.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import nn as nn_ops
+
+__all__ = [
+    "CellListModel", "build_cell_list_model", "cell_list_plan_device",
+    "cell_list_post_device", "cell_list_rows", "cell_list_rows_auto",
+    "cell_list_spec", "clamp_table", "nn_cell_list", "nn_cell_list_chained",
+    "plan_cell_list",
+]
+
+INF = float("inf")
+PAD_COORD = 1e30  # coordinates of the sorted model's pad rows
+# plain K2: [chunks, T, columns] scores per tile (256 MB of f32)
+_TILE_ELEMS = 1 << 26
+_TILE_CHUNKS = 64
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _round_up(a, b):
+    return _cdiv(a, b) * b
+
+
+def _neighbour_offsets(ny: int, nz: int) -> list[int]:
+    """Cell-id offsets of the 9 (dx, dy) neighbour columns."""
+    return [(dx * ny + dy) * nz for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+
+
+# ---------------------------------------------------------------------------
+# K2, plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def cell_list_rows(table, q_sorted, model_sorted, chunk: int):
+    """The plain PyTorch version of kernel K2.
+
+    table [W, 29] int32 (columns 2+3r, 3+3r, 4+3r: aligned start, shift
+    and length of range r); q_sorted [W*chunk, 4] f32 cell-sorted
+    queries; model_sorted [Mpad, 4] f32 cell-sorted model.  For each
+    query the row of ``model_sorted`` with the smallest
+    (qx−cx)² + (qy−cy)² + (qz−cz)² (f32, rounded in that order) among
+    rows [start+shift, start+shift+length) of its chunk's 9 ranges; the
+    earliest range and the lowest row win ties; a query without
+    candidates gets row 0 and score +inf.  Returns (rows [W*chunk]
+    int32, score [W*chunk] f32)."""
+    W = table.shape[0]
+    dev = table.device
+    Mrows = model_sorted.shape[0]
+    starts = (table[:, 2::3] + table[:, 3::3]).long().clamp(0, Mrows)
+    lens = torch.minimum(table[:, 4::3].long().clamp(min=0), Mrows - starts)
+    lens_host = lens.cpu().numpy()
+    q = q_sorted[:, :3].reshape(W, chunk, 3)
+    best = torch.full((W, chunk), INF, dtype=torch.float32, device=dev)
+    rows = torch.zeros((W, chunk), dtype=torch.int64, device=dev)
+    wt = min(W, _TILE_CHUNKS)
+    cb = max(1, _TILE_ELEMS // (wt * chunk))
+    for w0 in range(0, W, wt):
+        w1 = min(W, w0 + wt)
+        qt = q[w0:w1]
+        qx, qy, qz = qt[:, :, 0:1], qt[:, :, 1:2], qt[:, :, 2:3]
+        for r in range(9):
+            width = int(lens_host[w0:w1, r].max())
+            st = starts[w0:w1, r, None]
+            ln = lens[w0:w1, r, None]
+            for c0 in range(0, width, cb):
+                cols = torch.arange(c0, min(c0 + cb, width), device=dev)
+                rr = st + cols  # [wt, k]
+                c = model_sorted[rr.clamp(max=Mrows - 1)]  # [wt, k, 4]
+                dx = qx - c[:, None, :, 0]
+                dy = qy - c[:, None, :, 1]
+                dz = qz - c[:, None, :, 2]
+                d2 = dx * dx + dy * dy + dz * dz  # [wt, T, k]
+                d2 = torch.where((cols < ln)[:, None, :], d2, INF)
+                bm, ba = d2.min(dim=2)  # first minimum on ties
+                better = bm < best[w0:w1]
+                best[w0:w1] = torch.where(better, bm, best[w0:w1])
+                rows[w0:w1] = torch.where(better, st + c0 + ba, rows[w0:w1])
+    return rows.reshape(-1).to(torch.int32), best.reshape(-1)
+
+
+def cell_list_rows_auto(table, q_sorted, model_sorted, chunk: int):
+    """K2 dispatched on the tensors' device: the CUDA kernel
+    (``ops.nn_cell_list_cuda.cell_list_rows_kernel``) for CUDA tensors,
+    the plain :func:`cell_list_rows` for CPU tensors."""
+    if q_sorted.device.type == "cuda":
+        from .nn_cell_list_cuda import cell_list_rows_kernel
+
+        return cell_list_rows_kernel(table, q_sorted, model_sorted, chunk)
+    if q_sorted.device.type == "cpu":
+        return cell_list_rows(table, q_sorted, model_sorted, chunk)
+    raise ValueError(f"no cell-list engine for device {q_sorted.device}")
+
+
+# ---------------------------------------------------------------------------
+# Host-planned cell list (one plan per (model, query) pair)
+# ---------------------------------------------------------------------------
+
+
+def plan_cell_list(model, mmask, query, qmask, max_dist, chunk=256):
+    """Host-side plan: sort both clouds by cell id and build the
+    per-chunk table.  Returns a dict of numpy arrays and static metadata
+    (RB, chunk, W, Q).  numpy math: runs once per (model, query) pair."""
+    model = np.asarray(model, np.float32)
+    query = np.asarray(query, np.float32)
+    mmask = np.asarray(mmask)
+    qmask = np.asarray(qmask)
+    cell = float(max_dist)
+    valid_m = model[mmask]
+    valid_q = query[qmask]
+    lo = np.minimum(
+        valid_m.min(0) if len(valid_m) else np.zeros(3),
+        valid_q.min(0) if len(valid_q) else np.zeros(3),
+    ).astype(np.float32)
+    origin = lo - cell  # one-cell margin so ids stay >= nz inside
+    ext = (
+        np.maximum(
+            valid_m.max(0) if len(valid_m) else np.zeros(3),
+            valid_q.max(0) if len(valid_q) else np.zeros(3),
+        )
+        - origin
+    )
+    nx, ny, nz = (int(np.ceil(e / cell)) + 2 for e in ext)
+    C = nx * ny * nz
+
+    def cell_ids(pts, mask):
+        ij = np.floor((pts - origin) / cell).astype(np.int64)
+        ij = np.clip(ij, 0, np.array([nx - 1, ny - 1, nz - 1]))
+        ids = (ij[:, 0] * ny + ij[:, 1]) * nz + ij[:, 2]
+        ids[~mask] = C  # sentinel: sorts last
+        return ids
+
+    mid = cell_ids(model, mmask)
+    morder = np.argsort(mid, kind="stable")
+    mid_s = mid[morder]
+    model_s = model[morder]
+    cell_start = np.searchsorted(mid_s, np.arange(C + 1))
+
+    qid = cell_ids(query, qmask)
+    qorder = np.argsort(qid, kind="stable")
+    qid_s = qid[qorder]
+    Q = len(query)
+    W = _cdiv(Q, chunk)
+
+    offs = _neighbour_offsets(ny, nz)
+    table = np.zeros((W, 2 + 27), np.int32)
+    rb = 1
+    M = len(model)
+    for w in range(W):
+        a, b = w * chunk, min((w + 1) * chunk, Q)
+        ids = qid_s[a:b]
+        ids = ids[ids < C]
+        table[w, 0] = a
+        table[w, 1] = len(ids)
+        if len(ids) == 0:
+            continue
+        lo_id, hi_id = int(ids[0]), int(ids[-1])
+        for r, off in enumerate(offs):
+            s_id = max(0, lo_id + off - 1)
+            e_id = min(C, hi_id + off + 2)
+            if s_id >= C or e_id <= 0 or s_id >= e_id:
+                continue
+            rs = int(cell_start[s_id])
+            re = int(cell_start[e_id])
+            rs_al = (rs // 128) * 128
+            table[w, 2 + 3 * r] = rs_al
+            table[w, 3 + 3 * r] = rs - rs_al  # shift within the slice
+            table[w, 4 + 3 * r] = re - rs  # true length
+            rb = max(rb, (re - rs) + (rs - rs_al))
+
+    RB = _round_up(max(rb, 128), 128)
+    Mpad = _round_up(M + RB + 128, 128)
+    model_pad = np.zeros((Mpad, 4), np.float32)
+    model_pad[:M, :3] = model_s
+    model_pad[M:, :3] = PAD_COORD
+    qpad = _round_up(max(Q, 1), chunk)
+    query_pad = np.zeros((qpad, 4), np.float32)
+    query_pad[:Q, :3] = query[qorder]
+    return {
+        "model_sorted": model_pad,
+        "msrc": morder.astype(np.int32),
+        "query_sorted": query_pad,
+        "qorder": qorder.astype(np.int32),
+        "table": table,
+        "RB": int(RB),
+        "chunk": int(chunk),
+        "W": int(W),
+        "Q": Q,
+    }
+
+
+def nn_cell_list(model, mmask, query, qmask, max_dist2, chunk: int = 256,
+                 device=None):
+    """Grid NN through a host plan and K2.  Same contract as
+    ``ops.nn.nn_brute``: numpy in, numpy out (idx [Q] into ``model``, d2
+    [Q] f32, found [Q] bool with strict d2 < max_dist2).  K2 runs on
+    ``device`` (the package default when None)."""
+    if device is None:
+        from .. import default_device
+
+        device = default_device()
+    model = np.asarray(model, np.float32)
+    mmask = np.asarray(mmask)
+    max_dist = float(np.sqrt(max_dist2))
+    plan = plan_cell_list(model, mmask, query, qmask, max_dist, chunk)
+    Q = plan["Q"]
+    M = model.shape[0]
+    if Q == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.float32),
+                np.zeros(0, bool))
+    rows, _score = cell_list_rows_auto(
+        torch.as_tensor(plan["table"], device=device),
+        torch.as_tensor(plan["query_sorted"], device=device),
+        torch.as_tensor(plan["model_sorted"], device=device),
+        plan["chunk"],
+    )
+    rows = rows.cpu().numpy()[:Q]
+    rows_c = np.clip(rows, 0, M - 1)
+    idx_sorted_space = plan["msrc"][rows_c]
+    # exact recompute in original coordinates (host numpy f64)
+    qs = plan["query_sorted"][:Q, :3].astype(np.float64)
+    diff = qs - model.astype(np.float64)[idx_sorted_space]
+    d2x = np.einsum("ij,ij->i", diff, diff).astype(np.float32)
+    found_sorted = (d2x < max_dist2) & (rows < M) & mmask[idx_sorted_space]
+    qorder = plan["qorder"]
+    inv = np.zeros(Q, np.int64)
+    inv[qorder] = np.arange(Q)
+    idx = idx_sorted_space[inv]
+    d2 = d2x[inv]
+    found = found_sorted[inv] & np.asarray(qmask)
+    return idx, d2, found
+
+
+# ---------------------------------------------------------------------------
+# Device-planned cell list: the query side re-planned every ICP iteration
+# ---------------------------------------------------------------------------
+#
+# Exactness guards (the caller re-matches with brute when either fires):
+#   - overflow: more queries than the overflow lane holds sat in chunks
+#     whose candidate range exceeded the static RB
+#   - oob: some point left the static grid box (poses drifted past the
+#     margin the spec was sized with)
+
+
+class CellListModel(NamedTuple):
+    """Sorted-model side of the device cell list."""
+
+    points: torch.Tensor        # [M, 3] ORIGINAL model points (match frame)
+    mmask: torch.Tensor         # [M] bool model validity mask
+    model_sorted: torch.Tensor  # [Mpad, 4] sorted, permuted coords (w = 0)
+    msrc: torch.Tensor          # [M] int32 original index of each sorted row
+    cell_start: torch.Tensor    # [C+1] int32 CSR over dense cell ids
+    origin: torch.Tensor        # [3] f32 (permuted space)
+    cell: float                 # cell edge (an f32 value)
+
+
+def _dense_ids(pts, origin, cell, dims):
+    """Dense cell id of each point and whether it lies outside the box.
+    Divides by the cell edge in f32 (no reciprocal), as the JAX package
+    does, so points on cell faces land in the same cells."""
+    nx, ny, nz = dims
+    ij = torch.floor((pts - origin) / cell).to(torch.int32)
+    ijc = torch.stack(
+        [
+            ij[:, 0].clamp(0, nx - 1),
+            ij[:, 1].clamp(0, ny - 1),
+            ij[:, 2].clamp(0, nz - 1),
+        ],
+        dim=1,
+    )
+    ids = (ijc[:, 0] * ny + ijc[:, 1]) * nz + ijc[:, 2]
+    oob = ((ij < 0) | (ij != ijc)).any(dim=1)
+    return ids, oob
+
+
+def build_cell_list_model(
+    model, mmask, origin, cell, *, dims, RB: int, perm=(0, 1, 2)
+) -> tuple[CellListModel, torch.Tensor]:
+    """Model-side build, once per match.  Returns (CellListModel,
+    oob_count).  ``perm``: the spec's axis permutation — binning AND the
+    stored kernel coordinates run in permuted space (distances are
+    permutation-invariant); ``clm.points`` stays original."""
+    nx, ny, nz = dims
+    C = nx * ny * nz
+    M = model.shape[0]
+    dev = model.device
+    cell = float(np.float32(cell))
+    origin = torch.as_tensor(origin, dtype=torch.float32, device=dev)
+    model_p = model[:, list(perm)]
+    ids, oob = _dense_ids(model_p, origin, cell, dims)
+    ids = torch.where(mmask, ids, C)  # masked sorts last
+    order = torch.argsort(ids, stable=True)
+    ids_s = ids[order]
+    cell_start = torch.searchsorted(
+        ids_s, torch.arange(C + 1, dtype=ids_s.dtype, device=dev)
+    ).to(torch.int32)
+    Mpad = _round_up(M + RB + 128, 128)
+    ms = torch.full((Mpad, 4), PAD_COORD, dtype=torch.float32, device=dev)
+    ms[:, 3] = 0.0
+    ms[:M, :3] = model_p[order].to(torch.float32)
+    return (
+        CellListModel(
+            points=model,
+            mmask=mmask,
+            model_sorted=ms,
+            msrc=order.to(torch.int32),
+            cell_start=cell_start,
+            origin=origin,
+            cell=cell,
+        ),
+        (oob & mmask).sum().to(torch.int32),
+    )
+
+
+def cell_list_plan_device(query, qmask, clm: CellListModel, *, dims,
+                          chunk: int = 256, perm=(0, 1, 2)):
+    """Query plan on the tensors' device: sort the queries by dense cell
+    id and build the per-chunk table.  Returns (table [W, 29] int32,
+    q_sorted [W*chunk, 4] f32, order [N] int64, maxlen, oob_count)."""
+    nx, ny, nz = dims
+    C = nx * ny * nz
+    N = query.shape[0]
+    W = _cdiv(N, chunk)
+    dev = query.device
+    query_p = query[:, list(perm)]
+    ids, oob = _dense_ids(query_p, clm.origin, clm.cell, dims)
+    ids = torch.where(qmask, ids, C)
+    order = torch.argsort(ids, stable=True)
+    ids_s = torch.full((W * chunk,), C, dtype=ids.dtype, device=dev)
+    ids_s[:N] = ids[order]
+    q_s = torch.zeros((W * chunk, 4), dtype=torch.float32, device=dev)
+    q_s[:N, :3] = query_p[order].to(torch.float32)
+    idc = ids_s.view(W, chunk)
+    valid_q = idc < C
+    lo = torch.where(valid_q, idc, C).min(dim=1).values.long()
+    hi = torch.where(valid_q, idc, -1).max(dim=1).values.long()
+    any_valid = valid_q.any(dim=1)
+    zero = torch.zeros(W, dtype=torch.int32, device=dev)
+    cols = [zero, zero]  # query start and count: unused by the device plan
+    maxlen = torch.zeros((), dtype=torch.int32, device=dev)
+    for off in _neighbour_offsets(ny, nz):
+        rs = clm.cell_start[(lo + (off - 1)).clamp(0, C)]
+        re = torch.maximum(clm.cell_start[(hi + (off + 2)).clamp(0, C)], rs)
+        rs_al = (rs // 128) * 128
+        shift = rs - rs_al
+        ln = torch.where(any_valid, re - rs, 0)
+        maxlen = torch.maximum(maxlen, (shift + ln).max())
+        cols += [rs_al, shift, ln]
+    table = torch.stack(cols, dim=1).contiguous()
+    oob_n = (oob & qmask).sum().to(torch.int32)
+    return table, q_s, order, maxlen, oob_n
+
+
+def clamp_table(table, RB: int):
+    """The table with every range's length clamped so that shift + length
+    stays within RB; the chunks this shortens are repaired by the
+    overflow lane afterwards."""
+    out = table.clone()
+    out[:, 4::3] = torch.minimum(table[:, 4::3], RB - table[:, 3::3]).clamp(min=0)
+    return out
+
+
+def cell_list_post_device(rows, order, query, qmask, clm: CellListModel,
+                          max_dist2):
+    """Map kernel rows back to original model indices, with the exact d²
+    from the original coordinates.  A winner that is a masked model
+    point (only possible when the query had no candidate) is not found."""
+    N = query.shape[0]
+    M = clm.points.shape[0]
+    idx_sorted = clm.msrc[rows[:N].long().clamp(0, M - 1)].long()
+    inv = torch.empty(N, dtype=torch.int64, device=query.device)
+    inv[order] = torch.arange(N, device=query.device)
+    idx = idx_sorted[inv]
+    d2 = nn_ops.sq_norm3(query - clm.points[idx])
+    found = qmask & clm.mmask[idx] & (d2 < max_dist2)
+    return idx, d2, found
+
+
+def _lane_fix(q_over, query, idx, d2, found, clm, max_dist2, cap_over):
+    """Re-match the flagged queries (compacted to at most ``cap_over``)
+    against the whole model with the brute engine (K1 on the card) and
+    merge the answers in place."""
+    sel = torch.argsort((~q_over).to(torch.uint8), stable=True)[:cap_over]
+    sub_mask = q_over[sel]
+    idx_b, d2_b, found_b = nn_ops.nn_brute_auto(
+        query[sel].contiguous(), sub_mask, clm.points, clm.mmask, max_dist2
+    )
+    idx[sel] = torch.where(sub_mask, idx_b, idx[sel])
+    d2[sel] = torch.where(sub_mask, d2_b, d2[sel])
+    found[sel] = torch.where(sub_mask, found_b, found[sel])
+    return idx, d2, found
+
+
+def _overflow_lane(
+    table, order, query, qmask, idx, d2, found, clm: CellListModel,
+    max_dist2, *, RB: int, chunk: int, cap_over: int,
+):
+    """Exactness repair for over-budget chunks: a sorted-query chunk
+    whose candidate range exceeds the static RB had its range CLAMPED
+    for the kernel, so its queries may have missed their true NN.  This
+    lane re-matches just those queries (compacted to a ``cap_over``
+    batch) against the full model with the brute engine and merges the
+    results.
+
+    The JAX package runs the lane under a device-side branch.  Here it
+    always runs for CUDA tensors (reading the count would stall the
+    chain once per ICP iteration; an idle lane changes nothing) and only
+    when the count is not zero for CPU tensors.
+
+    Returns (idx, d2, found, n_over) — exactness holds iff
+    n_over <= cap_over (the caller's fallback guard)."""
+    N = query.shape[0]
+    req = (table[:, 3::3] + table[:, 4::3]).max(dim=1).values  # [W]
+    chunk_over = req > RB
+    # per-ORIGINAL-query overflow flag: sorted position k belongs to
+    # chunk k // chunk and original index order[k]
+    over_sorted = chunk_over.repeat_interleave(chunk)[:N]
+    q_over = torch.zeros(N, dtype=torch.bool, device=query.device)
+    q_over[order] = over_sorted
+    q_over &= qmask
+    n_over = q_over.sum()
+    if query.device.type == "cuda" or int(n_over) > 0:
+        idx, d2, found = _lane_fix(
+            q_over, query, idx, d2, found, clm, max_dist2, cap_over
+        )
+    return idx, d2, found, n_over
+
+
+def nn_cell_list_chained(query, qmask, clm: CellListModel, max_dist2,
+                         *, dims, RB: int, chunk: int = 256,
+                         perm=(0, 1, 2), cap_over: int = 8192):
+    """Cell-list NN as a chain of device ops with no host read inside
+    (for CUDA tensors).  Chunks whose candidate range exceeds RB are
+    repaired exactly by the brute overflow lane.  Returns (idx, d2,
+    found, overflow, oob) — overflow/oob are DEVICE scalars the caller
+    checks lazily; overflow means the lane capacity was exceeded and the
+    whole match must be redone with brute."""
+    max_dist2 = float(np.float32(max_dist2))
+    table, q_s, order, _maxlen, oob = cell_list_plan_device(
+        query, qmask, clm, dims=dims, chunk=chunk, perm=tuple(perm)
+    )
+    rows, _score = cell_list_rows_auto(
+        clamp_table(table, RB), q_s, clm.model_sorted, chunk
+    )
+    idx, d2, found = cell_list_post_device(
+        rows, order, query, qmask, clm, max_dist2
+    )
+    idx, d2, found, n_over = _overflow_lane(
+        table, order, query, qmask, idx, d2, found, clm, max_dist2,
+        RB=RB, chunk=chunk, cap_over=cap_over,
+    )
+    return idx, d2, found, n_over > cap_over, oob
+
+
+# ---------------------------------------------------------------------------
+# Host-side sizing
+# ---------------------------------------------------------------------------
+
+
+def cell_list_spec(points, max_dist, headroom=1.5,
+                   margin_cells=4, max_cells=64_000_000,
+                   vmem_budget=12_000_000, queries=None,
+                   model_sets=None, pairs=None):
+    """Host-side sizing for the device cell list: grid origin/dims over
+    the cloud bbox (+margin for pose drift) and the static RB from the
+    observed per-chunk candidate range lengths.  Returns the same dict
+    as the JAX package's ``cell_list_spec`` for the same input.
+
+    Tries the 3 cyclic AXIS PERMUTATIONS x chunk sizes 256/128 and
+    returns the smallest-RB configuration: dict(origin, dims, RB, chunk,
+    perm, cap_over), or None when nothing fits (the caller then stays on
+    the brute engine).  The permutation matters because candidate-range
+    length is driven by fast-axis COLUMN occupancy: a city cloud's dense
+    ground plane makes z-fastest columns huge, while vertical-fastest
+    columns stay at ground+facade thickness.  ``vmem_budget`` caps RB as
+    in the JAX package (the TPU's scratch size; kept so that both
+    packages plan alike — whether this card should keep the cap is a
+    measurement question)."""
+    pts_all = np.asarray(points, np.float64)
+    cell = float(max_dist)
+    best = None
+    if model_sets is None:
+        model_sets = [pts_all]
+    if pairs is None:
+        if queries is None:
+            pairs = [(mi, None) for mi in range(len(model_sets))]
+        else:
+            pairs = [
+                (mi, qi)
+                for mi in range(len(model_sets))
+                for qi in range(len(queries))
+            ]
+    for perm in ((0, 1, 2), (2, 0, 1), (1, 2, 0)):
+        pts = pts_all[:, perm]
+        lo = pts.min(0) - margin_cells * cell
+        hi = pts.max(0) + margin_cells * cell
+        dims = tuple(
+            int(np.ceil((hi[i] - lo[i]) / cell)) + 1 for i in range(3)
+        )
+        if dims[0] * dims[1] * dims[2] > max_cells:
+            continue
+        nx, ny, nz = dims
+        C = nx * ny * nz
+
+        def to_ids(cloud):
+            ij = np.clip(
+                np.floor(
+                    (np.asarray(cloud, np.float64)[:, perm] - lo) / cell
+                ).astype(np.int64),
+                0, np.asarray(dims) - 1,
+            )
+            return np.sort((ij[:, 0] * ny + ij[:, 1]) * nz + ij[:, 2])
+
+        starts = [
+            np.searchsorted(to_ids(ms), np.arange(C + 1))
+            for ms in model_sets
+        ]
+        qid_sets = (
+            None if queries is None else [to_ids(qp) for qp in queries]
+        )
+        offs = _neighbour_offsets(ny, nz)
+        for chunk in (256, 128):
+            # Per-chunk candidate-range requirements against the ACTUAL
+            # model sets.  RB is sized at the p99 requirement x headroom:
+            # the rare chunks that straddle slow-axis row transitions
+            # are repaired exactly by the brute overflow lane, provided
+            # their query count stays within its cap.
+            per_pair_reqs = []
+            for (mi, qi) in pairs:
+                cell_start = starts[mi]
+                ids_q = (
+                    qid_sets[qi] if qi is not None and qid_sets
+                    else to_ids(model_sets[mi])
+                )
+                W = _cdiv(len(ids_q), chunk)
+                pad = W * chunk - len(ids_q)
+                idc = np.pad(ids_q, (0, pad), constant_values=C).reshape(
+                    W, chunk
+                )
+                lo_id = idc[:, 0]
+                hi_id = np.where(
+                    idc[:, -1] < C, idc[:, -1],
+                    idc[np.arange(W), np.maximum(
+                        (idc < C).sum(1) - 1, 0
+                    )],
+                )
+                req = np.zeros(W, np.int64)
+                for off in offs:
+                    s = cell_start[np.clip(lo_id + off - 1, 0, C)]
+                    e = cell_start[np.clip(hi_id + off + 2, 0, C)]
+                    ln = np.maximum(e - s, 0) + (s - (s // 128) * 128)
+                    req = np.maximum(req, ln)
+                per_pair_reqs.append(req)
+            all_req = np.concatenate(per_pair_reqs)
+            if len(all_req) == 0:
+                continue
+            rb = max(128, int(np.percentile(all_req, 99.0)))
+            RB = _round_up(int(rb * min(headroom, 1.3)), 128)
+            rb_limit = (
+                vmem_budget // (8 * chunk + 9 * 32) // 128
+            ) * 128
+            RB = max(128, min(RB, rb_limit))
+            # worst single invocation's flagged queries must fit the
+            # brute overflow lane
+            over_q = max(
+                int((req > RB).sum()) * chunk for req in per_pair_reqs
+            )
+            if over_q > 24576:
+                continue
+            # lane capacity: 3x the worst estimated overflow (pose
+            # drift can grow it), floor 8192
+            cap_over = int(_round_up(max(8192, 3 * over_q), 4096))
+            cand = dict(
+                origin=lo.astype(np.float32), dims=dims, RB=int(RB),
+                chunk=int(chunk), perm=perm, cap_over=cap_over,
+            )
+            if best is None or cand["RB"] < best["RB"]:
+                best = cand
+            break  # larger chunks are better at equal feasibility
+    return best

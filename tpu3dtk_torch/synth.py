@@ -1,15 +1,18 @@
-"""Synthetic scan sequences — numpy-only copies of ``synth_loop`` and
-``synth_ring`` from ``scripts/make_golden.py`` (which imports the JAX
-package).  With the same arguments they return the same arrays: the
+"""Synthetic scan sequences — numpy-only copies of ``synth_loop``,
+``synth_ring`` and ``synth_city`` from ``scripts/make_golden.py`` (which
+imports the JAX package).  With the same arguments they return the same arrays: the
 random draws are identical and the pose math is the port's numpy
 ``math3d``, the same formulas.
 
 - :func:`synth_loop`: a 60-scan loop through a pillared hall.
 - :func:`synth_ring`: the h468 regime, 468 scans of 16384 points on a
   ring corridor traversed 1.3 times.
+- :func:`synth_city`: the bremen_city regime, 13 dense terrestrial scans
+  of 1M raw points of a city block.
 
 Each returns (locals [n][n_pts,3] f32, true_mats, odo_mats).
-:func:`write_scan_dir` stores such a sequence as a uos scan directory.
+:func:`write_scan_dir` stores such a sequence as a uos scan directory;
+:func:`write_net_graph` stores a pose graph as a ``.net`` file.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ import numpy as np
 from .core import math3d
 from .io.writer import write_pose, write_uos
 
-__all__ = ["synth_loop", "synth_ring", "write_scan_dir"]
+__all__ = [
+    "synth_city", "synth_loop", "synth_ring", "write_net_graph",
+    "write_scan_dir",
+]
 
 
 def write_scan_dir(directory: str, locals_, poses) -> list[str]:
@@ -37,6 +43,17 @@ def write_scan_dir(directory: str, locals_, poses) -> list[str]:
         write_pose(os.path.join(directory, f"scan{ident}.pose"), pos, theta)
         idents.append(ident)
     return idents
+
+
+def write_net_graph(path: str, n_scans: int, links) -> None:
+    """Write a pose graph in the ``.net`` format
+    ``models.graphslam.read_net_graph`` reads: the number of scans, the
+    number of links, then one 'from to' pair per line."""
+    links = np.asarray(links, np.int64).reshape(-1, 2)
+    with open(path, "w") as f:
+        f.write(f"{int(n_scans)}\n{len(links)}\n")
+        for a, b in links:
+            f.write(f"{a} {b}\n")
 
 
 def synth_loop(n_scans=60, seed=7, n_pts=6000, density=1.0):
@@ -189,6 +206,71 @@ def synth_ring(n_scans=468, n_pts=16384, radius=4500.0, half_width=300.0,
         local += rng.normal(0, 1.0, local.shape)  # 1 cm sensor noise
         locals_.append(local.astype(np.float32))
         dacc += rng.normal(0, drift, 3)
+        To = T.copy()
+        To[:3, 3] += dacc
+        odo_mats.append(To)
+    return locals_, true_mats, odo_mats
+
+
+def synth_city(n_scans=13, n_pts=1_000_000, seed=23):
+    """The bremen_city regime: ~13 dense terrestrial scans (≥1M raw
+    points each) of a city block — ground plane + building facades —
+    taken along a street path (riegl_txt, octree reduction, -d 150
+    matching).  Returns (locals, true_mats, odo_mats); locals are RAW
+    (unreduced) f32 clouds."""
+    rng = np.random.default_rng(seed)
+    area = 14000.0  # 140 m square
+    parts = []
+    n_ground = 2_500_000
+    g = rng.uniform(0, area, (n_ground, 2))
+    parts.append(np.stack([g[:, 0], np.zeros(n_ground), g[:, 1]], axis=1))
+    # building blocks on a grid with street gaps
+    for bx in range(4):
+        for bz in range(4):
+            x0, z0 = 800 + bx * 3500, 800 + bz * 3500
+            w, d, h = 2200.0, 2200.0, rng.uniform(800, 2500)
+            n_f = 160_000
+            side = rng.integers(0, 4, n_f)
+            u = rng.uniform(0, 1, n_f)
+            yy = rng.uniform(0, h, n_f)
+            xx = np.where(side == 0, x0, np.where(side == 1, x0 + w, x0 + u * w))
+            zz = np.where(side == 2, z0, np.where(side == 3, z0 + d, z0 + u * d))
+            xx = np.where(side >= 2, x0 + u * w, xx)
+            zz = np.where(side < 2, z0 + u * d, zz)
+            parts.append(np.stack([xx, yy, zz], axis=1))
+    env = np.concatenate(parts).astype(np.float32)
+
+    range_max = 5000.0
+    true_mats, odo_mats, locals_ = [], [], []
+    dacc = np.zeros(3)
+    # street path: L-shaped route through the block grid
+    waypoints = np.linspace(0, 1, n_scans)
+    for t in waypoints:
+        if t < 0.5:
+            center = np.array([2900.0, 170.0, 1500 + t * 2 * 10000])
+            yaw = 0.0
+        else:
+            center = np.array(
+                [2900 + (t - 0.5) * 2 * 9000, 170.0, 11500.0]
+            )
+            yaw = -np.pi / 2
+        T = np.asarray(
+            math3d.euler_to_matrix4(center, np.array([0.0, yaw, 0.0]), xp=np)
+        )
+        true_mats.append(T)
+        d2 = ((env - center) ** 2).sum(1)
+        inr = d2 < range_max**2
+        vis = env[inr]
+        # solid-angle sampling (P ∝ 1/d², Gumbel top-k): see synth_ring
+        w = 1.0 / np.maximum(d2[inr], 300.0**2)
+        keys = np.log(w) + rng.gumbel(size=len(vis))
+        take = min(n_pts, len(vis))
+        vis = vis[np.argpartition(-keys, take - 1)[:take]]
+        Ti = np.linalg.inv(T)
+        local = vis @ Ti[:3, :3].T + Ti[:3, 3]
+        local += rng.normal(0, 1.5, local.shape)
+        locals_.append(local.astype(np.float32))
+        dacc += rng.normal(0, 15.0, 3)  # coarse GPS/odometry prior
         To = T.copy()
         To[:3, 3] += dacc
         odo_mats.append(To)
