@@ -10,12 +10,17 @@ exit code and no result line):
 
 1. device  — a CUDA card must be present; prints its name and power limit.
 2. build   — builds every kernel of the paths from csrc/ with nvcc, one
-   nvcc per library, started together.
-3. kernels — K1 against its plain PyTorch version on the card, at
-   the main path's shapes (the first h468 match as the path gives it:
-   reduced, padded to a multiple of 512 and masked; the raw 16384 x 16384
-   scan pair; an awkward masked 70001-point model; the strict
-   d² == max_dist2 boundary), with times.
+   nvcc per library, started together; prints registers, shared memory
+   and spills.
+3. kernels — K1 against its plain PyTorch version on the card, through a
+   prepared model (as the ICP loop calls it) and through a bare
+   (model, mask) call, at the main path's shapes (the first h468 match as
+   the path gives it: reduced, padded to a multiple of 512 and masked;
+   the raw 16384 x 16384 scan pair; an awkward masked 70001-point model;
+   the strict d² == max_dist2 boundary), and against a ranking that
+   prepares nothing (its own centre and mask term from the raw model),
+   with wrapper times, the kernels' device time and the launches per call
+   (at most 3 prepared).
 4. slice   — ``torchslam`` (cli.slam6d.main) on the h468 ring corridor
    written as a uos directory (468 scans x 16384 points, -r 10 -O 1
    -d 50 -i 50 --epsICP 1e-6); the kernel's launch count must equal the
@@ -27,21 +32,29 @@ exit code and no result line):
    device's busy share, K1's share of the device time.
 7. kernels B — K2 (the cell-list kernel) against its plain version at the
    bremen path's shape (scans 0 and 1 of the 13 x 1M-point city sequence
-   reduced on the card, the first match's first NN call): identical rows;
-   the whole chain against K1 at the same shape; K2 alone on the
-   unclamped table against K1; a forced overflow repaired by the lane;
-   the lane's capacity exceeded; the strict boundary; times and the
-   kernel's bound.
+   reduced on the card, the first match's first NN call), on the table
+   clamped to RB and on the unclamped one: identical rows and scores; the
+   work items per call and their size R; the
+   chain as the path runs it (RB=None: no clamp, no lane) and with RB
+   against K1 at the same shape; the times the lane decision rests on; a
+   forced overflow (RB=128) repaired by the lane; the lane's capacity
+   exceeded; the strict boundary; times and the kernel's bound.
 8. slice B — ``torchslam ... -n bremen.net`` on all 13 scans (-r 20 -O 1
    -d 150 -i 50 --epsICP 1e-4 -I 5 -D 150 --epsSLAM 0.5): K2's launch
    count must equal the chained ICP loop trips plus the chained LUM link
-   calls; not every match may be redone by brute; ICP and LUM frames.
+   calls, K1's the iterations of the matches redone by brute (none when no
+   guard fired); not every match may be redone; ICP and LUM frames.
 9. engines — the first 3 bremen scans through SequenceRegistration with
    the chained engine (K2) and with the brute engine (K1): same poses.
 10. profile B — one chained bremen match under torch.profiler.
 
 A line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
+
+The tuning sweeps behind the wrappers' constants (K1's blocks per SM,
+K2's R and grid), the ranking loops' instruction count in the SASS and
+the SM clock under load are not part of the smoke:
+``python3 -m tpu3dtk_torch.tools.kernel_tuning`` prints them.
 """
 
 from __future__ import annotations
@@ -76,11 +89,17 @@ CITY_DIST = 150.0
 CITY_VOXEL = 20.0
 
 # the card's published peaks (H100 SXM): f32 outside the tensor cores and
-# device memory; and the FP32 pipes' instruction rate the kernels' notes use
-# (132 SMs x 128 lanes x 1.98 GHz over ~13 instruction slots per pair)
+# device memory; and the instruction rate the kernels' source notes use (132 SMs x
+# 4 schedulers x 32 lanes x 1.98 GHz over the instruction slots of one pair)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-FP32_PAIRS_PER_S = 132 * 128 * 1.98e9 / 13.0
+LANE_INSTR_PER_S = 132 * 128 * 1.98e9
+# instruction slots a pair of the ranking loops, as the kernels' source
+# notes state them (tpu3dtk_torch.tools.kernel_tuning counts them in the SASS)
+LOOP_SLOTS = {"nn_brute": 9.6, "nn_cell_list": 10.0}
+PAIR_FLOPS = 8  # 3 subtracts, 3 multiplies, 2 adds
+K1_KERNELS = ("nn_fill_kernel", "nn_rank_kernel", "nn_accept_kernel")
+K2_KERNELS = ("cell_list_init_kernel", "cell_list_items_kernel", "cell_list_unpack_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -115,12 +134,31 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def burst_ms(fn, reps=20):
+    """Milliseconds per fn() on the card over ``reps`` calls queued back
+    to back between two CUDA events: the device time of calls that outlast
+    their launch (the queue stays ahead of the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, kernels, reps=10):
     """Device time per fn() call spent in the named kernels (ms), from
-    the device events of a torch.profiler trace of ``reps`` calls.  Where
-    the trace holds none of them, the time of ``reps`` back-to-back calls
-    by CUDA events instead (equal to the kernels' time only where they
-    outlast their launch; a line says so when that source is used)."""
+    the device events of a torch.profiler trace of ``reps`` calls, and
+    the CUDA runtime's kernel launches per call.  Where the trace holds
+    none of the kernels, the time of ``reps`` back-to-back calls by CUDA
+    events instead (equal to the kernels' time only where they outlast
+    their launch; a line says so when that source is used)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -135,56 +173,100 @@ def device_ms(fn, kernels, reps=10):
         e.time_range.elapsed_us() for e in prof.events()
         if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels)
     )
+    api = sum(
+        1 for e in prof.events()
+        if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name
+    ) / reps
     if us > 0:
-        return us / reps / 1e3
+        return us / reps / 1e3, api
     print(f"[profiler] no device events for {kernels}: timing {reps} "
           "back-to-back calls with CUDA events instead", flush=True)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return burst_ms(fn, reps), api
+
+
+def nn_unprepared(q, qm, m, mm, md2):
+    """Brute NN that shares nothing with ``prepare_brute_model``: its own
+    masked mean, the mask as an added 0 / +inf, the gate written out."""
+    import torch
+
+    w = mm.to(torch.float32)[:, None]
+    c = (m * w).sum(0) / torch.clamp(w.sum(), min=1.0)
+    qc, mc = q - c, (m - c).T.contiguous()
+    minf = torch.where(mm, 0.0, float("inf"))
+    idx = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
+    step = max(1, (1 << 24) // m.shape[0])
+    for s in range(0, q.shape[0], step):
+        dx, dy, dz = (qc[s:s + step, k:k + 1] - mc[k] for k in range(3))
+        idx[s:s + step] = torch.argmin(dx * dx + dy * dy + dz * dz + minf, dim=1)
+    e = q - m[idx]
+    d2 = torch.where(mm[idx], e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2], 3.4e38)
+    return idx, d2, qm & mm[idx] & (d2 < md2)
 
 
 def compare_nn(name, q, qm, m, mm, md2):
-    """K1 against its plain version on the same CUDA tensors; returns
-    (max |d2 diff|, wrapper ms, plain ms, the kernels' device ms, and the
-    kernel's idx, d2, found).  Wrapper and plain are timed alike, with
-    CUDA events around whole calls."""
+    """K1 against its plain version on the same CUDA tensors, through a
+    prepared model and through the bare call, and (the plain version ranks
+    the prepared tensors the kernel reads too) against ``nn_unprepared``,
+    which prepares nothing; returns (max |d2 diff|,
+    prepared wrapper ms, plain ms, the kernels' device ms, and the
+    kernel's idx, d2, found).  Wrappers and plain are timed alike, with
+    CUDA events around whole calls, the two wrappers in turns."""
     import torch
 
     from tpu3dtk_torch.ops import nn as nn_ops
     from tpu3dtk_torch.ops.nn_cuda import nn_brute_kernel
 
-    k_idx, k_d2, k_found = nn_brute_kernel(q, qm, m, mm, md2)
+    bm = nn_ops.prepare_brute_model(m, mm)
     p_idx, p_d2, p_found = nn_ops.nn_brute(q, qm, m, mm, md2)
-    torch.cuda.synchronize()
-    agree = (k_idx == p_idx).double().mean().item()
-    both = (k_d2 < nn_ops.BIG) & (p_d2 < nn_ops.BIG)
-    err = (k_d2 - p_d2).abs()[both].max().item() if bool(both.any()) else 0.0
-    mism = k_found != p_found
-    ties_only = bool((k_d2[mism] == p_d2[mism]).all())
-    check(agree >= 0.999, f"{name}: index agreement {agree} < 0.999")
-    check(err <= 1e-2, f"{name}: chosen d2 differs by {err} > 1e-2")
-    check(ties_only, f"{name}: found differs off exact ties")
-    check(bool(torch.isfinite(k_d2).all()), f"{name}: non-finite d2")
-    k_ms = cuda_ms(lambda: nn_brute_kernel(q, qm, m, mm, md2))
+    u_idx, u_d2, u_found = nn_unprepared(q, qm, m, mm, md2)
+    err = 0.0
+    for form, call in (
+        ("prepared", lambda: nn_brute_kernel(q, qm, bm, None, md2)),
+        ("bare", lambda: nn_brute_kernel(q, qm, m, mm, md2)),
+    ):
+        k_idx, k_d2, k_found = call()
+        torch.cuda.synchronize()
+        agree = (k_idx == p_idx).double().mean().item()
+        both = (k_d2 < nn_ops.BIG) & (p_d2 < nn_ops.BIG)
+        e = (k_d2 - p_d2).abs()[both].max().item() if bool(both.any()) else 0.0
+        mism = k_found != p_found
+        check(agree >= 0.999, f"{name} ({form}): index agreement {agree} < 0.999")
+        check(e <= 1e-2, f"{name} ({form}): chosen d2 differs by {e} > 1e-2")
+        check(bool((k_d2[mism] == p_d2[mism]).all()), f"{name} ({form}): found differs off exact ties")
+        check(bool(torch.isfinite(k_d2).all()), f"{name} ({form}): non-finite d2")
+        check(k_idx.dtype == torch.int64 and k_found.dtype == torch.bool, f"{name}: output types")
+        u_agree = (k_idx == u_idx).double().mean().item()
+        u_e = (k_d2 - u_d2).abs().max().item()
+        u_mism = k_found != u_found
+        check(u_agree >= 0.999, f"{name} ({form}): index agreement {u_agree} < 0.999 with the "
+              "ranking that prepares nothing")
+        check(u_e <= 1e-2, f"{name} ({form}): chosen d2 differs by {u_e} > 1e-2 from the "
+              "ranking that prepares nothing")
+        check(bool((k_d2[u_mism] == u_d2[u_mism]).all()),
+              f"{name} ({form}): found differs off exact ties from the ranking that prepares nothing")
+        err = max(err, e, u_e)
+    prepared = lambda: nn_brute_kernel(q, qm, bm, None, md2)  # noqa: E731
+    bare = lambda: nn_brute_kernel(q, qm, m, mm, md2)  # noqa: E731
+    k_ms = [cuda_ms(prepared), 0.0]
+    b_ms = [cuda_ms(bare), cuda_ms(bare)]
+    k_ms[1] = cuda_ms(prepared)
     p_ms = cuda_ms(lambda: nn_ops.nn_brute(q, qm, m, mm, md2))
-    d_ms = device_ms(
-        lambda: nn_brute_kernel(q, qm, m, mm, md2),
-        ("nn_partial_kernel", "nn_merge_kernel"),
-    )
+    prep_ms = cuda_ms(lambda: nn_ops.prepare_brute_model(m, mm))
+    d_ms, k_api = device_ms(prepared, K1_KERNELS)
+    r_ms, _ = device_ms(prepared, ("nn_rank_kernel",))
+    _, b_api = device_ms(bare, K1_KERNELS)
+    check(k_api <= 3, f"{name}: a prepared K1 call made {k_api} kernel launches, want <= 3")
     phase(
         3, "kernels",
         f"{name}: Q={q.shape[0]} M={m.shape[0]} agree={agree:.6f} "
-        f"max|d2 diff|={err:.3e} found={int(k_found.sum())} "
-        f"wrapper {k_ms:.4f} ms (kernels' own device time {d_ms:.4f} ms), "
-        f"plain {p_ms:.4f} ms",
+        f"max|d2 diff|={err:.3e} found={int(k_found.sum())}; against the ranking that prepares "
+        f"nothing agree={u_agree:.6f}; prepared: wrapper "
+        f"{k_ms[0]:.4f} / {k_ms[1]:.4f} ms, {k_api:.1f} kernel launches a call, the kernels' "
+        f"own device time {d_ms:.4f} ms (rank {r_ms:.4f} ms); bare: wrapper {b_ms[0]:.4f} / "
+        f"{b_ms[1]:.4f} ms, {b_api:.1f} launches a call; prepare_brute_model alone "
+        f"{prep_ms:.4f} ms; plain {p_ms:.4f} ms",
     )
-    return err, k_ms, p_ms, d_ms, k_idx, k_d2, k_found
+    return err, min(k_ms), p_ms, d_ms, k_idx, k_d2, k_found
 
 
 def rel_trans_err(mats, ref):
@@ -199,20 +281,21 @@ def rel_trans_err(mats, ref):
     return np.asarray(out)
 
 
-def nn_bound(pairs, flops_per_pair, nbytes):
+def nn_bound(pairs, nbytes, slots):
     """Least time (ms) the card could take: the larger of the f32
     operations over the f32 peak and the bytes (each input read once,
     each output written once) over the memory rate; which of the two;
-    and the time at the FP32 pipes' instruction rate of the kernels' inner
-    loop, which is the tighter statement for this instruction mix."""
-    ops_ms = pairs * flops_per_pair / PEAK_F32_FLOPS * 1e3
+    and the time at the instruction rate of the schedulers for ``slots`` instruction slots
+    a pair (the kernel's inner loop), which is the tighter statement for
+    this instruction mix."""
+    ops_ms = pairs * PAIR_FLOPS / PEAK_F32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     by = "operations" if ops_ms >= bytes_ms else "bytes"
-    return max(ops_ms, bytes_ms), by, pairs / FP32_PAIRS_PER_S * 1e3
+    return max(ops_ms, bytes_ms), by, pairs * slots / LANE_INSTR_PER_S * 1e3
 
 
 def profile_match(run, n=6, label="first h468 match", units=None,
-                  kernel="K1", names=("nn_partial_kernel", "nn_merge_kernel")):
+                  kernel="K1", names=K1_KERNELS):
     """One ICP match (``run()`` returns its IcpResult) under
     torch.profiler: per-iteration counts of the CUDA runtime's kernel
     launches, of the kernels and copies the card ran, and of device
@@ -274,8 +357,8 @@ def ate_rmse(mats, ref):
 
 
 def bremen_phases(dev, params_city):
-    """Phases 7-10: kernel K2 and the city-scale path.  Returns K2's
-    entry for the kernels line."""
+    """Phases 7-10: kernel K2 and the city-scale path.  Returns K2's entry
+    for the kernels line."""
     import numpy as np
     import torch
 
@@ -289,7 +372,7 @@ def bremen_phases(dev, params_city):
     from tpu3dtk_torch.models import icp as icp_mod
     from tpu3dtk_torch.models import sequence as seq_mod
     from tpu3dtk_torch.ops import nn_cell_list as ncl
-    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
     from tpu3dtk_torch.ops.nn_cell_list_cuda import cell_list_rows_kernel
     from tpu3dtk_torch.utils.metrics import metrics
 
@@ -349,91 +432,143 @@ def bremen_phases(dev, params_city):
     check(int(oob_m) == 0 and int(oob_q) == 0, "points outside the grid box at the odometry poses")
     table_c = ncl.clamp_table(table, spec["RB"])
     T = spec["chunk"]
-    k_rows, k_score = cell_list_rows_kernel(table_c, q_s, clm.model_sorted, T)
-    p_rows, p_score = ncl.cell_list_rows(table_c, q_s, clm.model_sorted, T)
-    torch.cuda.synchronize()
-    check(torch.equal(k_rows, p_rows), "K2: rows differ from the plain version")
-    fin = torch.isfinite(p_score)
-    check(torch.equal(torch.isfinite(k_score), fin), "K2: candidate-less queries differ")
-    k2_err = (k_score[fin] - p_score[fin]).abs().max().item()
-    check(k2_err == 0.0, f"K2: scores differ from the plain version by {k2_err}")
-    fk = ncl.cell_list_post_device(k_rows, order, q, qm, clm, md2)[2]
-    fp = ncl.cell_list_post_device(p_rows, order, q, qm, clm, md2)[2]
-    check(torch.equal(fk, fp), "K2: found differs from the plain version")
-    lens = table_c[:, 4::3].long().clamp(min=0)
-    cand_rows = int(lens.sum())
-    pairs = cand_rows * T
-    n_over_chunks = int(((table[:, 3::3] + table[:, 4::3]).max(dim=1).values > spec["RB"]).sum())
     W = table.shape[0]
-    nbytes = table.numel() * 4 + q_s.numel() * 4 + clm.model_sorted.numel() * 4 + 8 * W * T
-    bound_ms, bound_by, instr_ms = nn_bound(pairs, 8, nbytes)
+    Mrows = clm.model_sorted.shape[0]
+    n_over_chunks = int(((table[:, 3::3] + table[:, 4::3]).max(dim=1).values > spec["RB"]).sum())
+    R = nn_cell_list_cuda.ITEM_ROWS
+    k2_slots = LOOP_SLOTS["nn_cell_list"]
+    k2_err = 0.0
+    shapes = {}
+    for tname, tab in (("clamped", table_c), ("unclamped", table)):
+        k_rows, k_score = cell_list_rows_kernel(tab, q_s, clm.model_sorted, T)
+        p_rows, p_score = ncl.cell_list_rows(tab, q_s, clm.model_sorted, T)
+        torch.cuda.synchronize()
+        check(torch.equal(k_rows, p_rows), f"K2 ({tname}): rows differ from the plain version")
+        fin = torch.isfinite(p_score)
+        check(torch.equal(torch.isfinite(k_score), fin), f"K2 ({tname}): candidate-less queries differ")
+        e = (k_score[fin] - p_score[fin]).abs().max().item()
+        check(e == 0.0, f"K2 ({tname}): scores differ from the plain version by {e}")
+        k2_err = max(k2_err, e)
+        fk = ncl.cell_list_post_device(k_rows, order, q, qm, clm, md2)[2]
+        fp = ncl.cell_list_post_device(p_rows, order, q, qm, clm, md2)[2]
+        check(torch.equal(fk, fp), f"K2 ({tname}): found differs from the plain version")
+        prefix, totals = ncl.cell_list_work_items(tab, Mrows, R)
+        # the item prefix the library's init kernel left in its scratch
+        scratch = torch.empty(W * T + W + 2, dtype=torch.int64, device=dev)
+        nn_cell_list_cuda._launch(
+            tab, q_s, clm.model_sorted, T, R, 8, scratch, torch.empty_like(k_rows),
+            torch.empty_like(k_score))
+        check(torch.equal(scratch[W * T + 1:], prefix),
+              f"K2 ({tname}): the kernel's item prefix differs from cell_list_work_items")
+        shapes[tname] = dict(
+            rows=k_rows, found=int(fk.sum()), cand=int(totals.sum()),
+            longest=int(totals.max()), items=int(prefix[-1]),
+        )
+
+    # raw launches queued back to back outlast their launch, so two CUDA
+    # events give the three kernels' device time whatever the profiler sees
+    o_rows = torch.empty(W * T, dtype=torch.int32, device=dev)
+    o_score = torch.empty(W * T, dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def raw_ms(tab):
+        return burst_ms(lambda: nn_cell_list_cuda._launch(
+            tab, q_s, clm.model_sorted, T, R, sms * nn_cell_list_cuda.BLOCKS_PER_SM,
+            scratch, o_rows, o_score))
+
+    dev_c = [raw_ms(table_c)]
+    dev_u = [raw_ms(table) for _ in range(2)]
+    dev_c.append(raw_ms(table_c))
+    d_ms, du_ms = min(dev_c), min(dev_u)
+    _, k2_api = device_ms(
+        lambda: cell_list_rows_kernel(table, q_s, clm.model_sorted, T), K2_KERNELS)
     k_ms = cuda_ms(lambda: cell_list_rows_kernel(table_c, q_s, clm.model_sorted, T))
+    ku_ms = cuda_ms(lambda: cell_list_rows_kernel(table, q_s, clm.model_sorted, T))
     p_ms = cuda_ms(lambda: ncl.cell_list_rows(table_c, q_s, clm.model_sorted, T), reps=3, warmup=1)
-    d_ms = device_ms(
-        lambda: cell_list_rows_kernel(table_c, q_s, clm.model_sorted, T), ("cell_list_kernel",)
-    )
+    pu_ms = cuda_ms(lambda: ncl.cell_list_rows(table, q_s, clm.model_sorted, T), reps=3, warmup=1)
+    check(k2_api <= 3, f"a K2 call made {k2_api} kernel launches, want <= 3")
+    sc, su = shapes["clamped"], shapes["unclamped"]
+    pairs, u_pairs = sc["cand"] * T, su["cand"] * T
+    nbytes = table.numel() * 4 + q_s.numel() * 4 + clm.model_sorted.numel() * 4 + 8 * W * T
+    bound_ms, bound_by, instr_ms = nn_bound(pairs, nbytes, k2_slots)
+    u_bound_ms, _, u_instr_ms = nn_bound(u_pairs, nbytes, k2_slots)
     phase(
         7, "kernels B",
         f"K2 at the first bremen NN call: Q={q.shape[0]} M={model.shape[0]} W={W} chunks of {T}; "
-        f"rows identical, max|score diff|={k2_err:.1e}, found identical ({int(fk.sum())}); "
-        f"candidate rows per chunk: mean {cand_rows / W:.1f}, max {int(lens.sum(1).max())}, "
-        f"longest range {int(maxlen)} (RB {spec['RB']}, {n_over_chunks} chunks clamped); "
-        f"wrapper {k_ms:.4f} ms (kernel's own device time {d_ms:.4f} ms), plain {p_ms:.4f} ms",
+        f"clamped (RB {spec['RB']}, {n_over_chunks} chunks clamped) and unclamped table: rows "
+        f"identical, max|score diff|={k2_err:.1e}, found identical ({sc['found']} / {su['found']}); "
+        f"candidate rows per chunk: mean {sc['cand'] / W:.1f} / {su['cand'] / W:.1f}, max "
+        f"{sc['longest']} / {su['longest']}, longest range {int(maxlen)}; work items of R={R} "
+        f"rows: {sc['items']} / {su['items']} a call, grid {sms} x {nn_cell_list_cuda.BLOCKS_PER_SM} blocks",
     )
     phase(
         7, "kernels B",
-        f"K2 bound: {pairs:.4g} pairs x 8 f32 operations over 67 TFLOP/s vs {nbytes:.4g} bytes "
-        f"over 3.35 TB/s = {bound_ms:.5f} ms (bound by {bound_by}); candidate bytes "
-        f"{cand_rows * 16 / PEAK_BYTES * 1e3:.5f} ms; at the FP32 instruction rate of its inner loop "
-        f"({FP32_PAIRS_PER_S:.3g} pairs/s) {instr_ms:.5f} ms; measured {pairs / d_ms / 1e9:.4g}e12 pairs/s",
+        f"K2 device time (init + items + unpack, two CUDA events around 20 raw launches queued "
+        f"back to back, in turns): clamped {dev_c[0]:.4f} / {dev_c[1]:.4f} ms, unclamped {dev_u[0]:.4f} / "
+        f"{dev_u[1]:.4f} ms; {k2_api:.1f} kernel launches a wrapper call; wrapper {k_ms:.4f} ms "
+        f"clamped, {ku_ms:.4f} ms unclamped, plain {p_ms:.4f} ms "
+        f"clamped, {pu_ms:.4f} ms unclamped",
+    )
+    phase(
+        7, "kernels B",
+        f"K2 bound (clamped): {pairs:.4g} pairs x {PAIR_FLOPS} f32 operations over 67 TFLOP/s vs "
+        f"{nbytes:.4g} bytes over 3.35 TB/s = {bound_ms:.5f} ms (bound by {bound_by}); candidate "
+        f"bytes {sc['cand'] * 16 / PEAK_BYTES * 1e3:.5f} ms; at the instruction rate of its inner loop "
+        f"({k2_slots:.2f} slots a pair, {LANE_INSTR_PER_S / k2_slots:.3g} pairs/s) {instr_ms:.5f} ms; "
+        f"measured {pairs / d_ms / 1e9:.4g}e12 pairs/s; unclamped: {u_pairs:.4g} pairs, bound "
+        f"{u_bound_ms:.5f} ms, instruction rate {u_instr_ms:.5f} ms, measured {u_pairs / du_ms / 1e9:.4g}e12 pairs/s",
     )
 
-    # the whole chain against K1 at the same shape: both exact
-    c_idx, c_d2, c_found, c_ovf, c_oob = ncl.nn_cell_list_chained(q, qm, clm, md2, **kw)
+    # the chain as the path runs it (RB=None) and with RB, against K1: all exact
     b_idx, b_d2, b_found = nn_cuda.nn_brute_kernel(q, qm, model, mmask, md2)
-    torch.cuda.synchronize()
-    check(not bool(c_ovf) and int(c_oob) == 0, "chain: a guard fired at the odometry poses")
-    check(torch.equal(c_found, b_found), "chain vs K1: found differs")
-    agree = (c_idx[c_found] == b_idx[c_found]).double().mean().item()
-    d2_err = (c_d2[c_found] - b_d2[c_found]).abs().max().item()
-    # K1 ranks on coordinates centred on the model mean, K2 on the raw
-    # ones: a pair of candidates closer than that rounding (~1e-3 cm at
-    # 10^4 cm extents) may swap; d2 is recomputed exactly for both
-    check(agree >= 0.999, f"chain vs K1: index agreement {agree}")
-    check(d2_err <= 0.5, f"chain vs K1: chosen d2 differs by {d2_err}")
-    chain_ms = cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw), reps=10)
+    kw_path = dict(kw, RB=None)
+    for cname, ckw in (("RB=None", kw_path), (f"RB={spec['RB']}", kw)):
+        c_idx, c_d2, c_found, c_ovf, c_oob = ncl.nn_cell_list_chained(q, qm, clm, md2, **ckw)
+        torch.cuda.synchronize()
+        check(not bool(c_ovf) and int(c_oob) == 0, f"chain ({cname}): a guard fired at the odometry poses")
+        check(torch.equal(c_found, b_found), f"chain ({cname}) vs K1: found differs")
+        agree = (c_idx[c_found] == b_idx[c_found]).double().mean().item()
+        d2_err = (c_d2[c_found] - b_d2[c_found]).abs().max().item()
+        # K1 ranks on coordinates centred on the model mean, K2 on the raw
+        # ones: a pair of candidates closer than that rounding (~1e-3 cm at
+        # 10^4 cm extents) may swap; d2 is recomputed exactly for both
+        check(agree >= 0.999, f"chain ({cname}) vs K1: index agreement {agree}")
+        check(d2_err <= 0.5, f"chain ({cname}) vs K1: chosen d2 differs by {d2_err}")
+        phase(7, "kernels B", f"chain ({cname}) vs K1 at {q.shape[0]} x {model.shape[0]}: found "
+              f"identical ({int(c_found.sum())}), index agreement {agree:.6f}, max|d2 diff| {d2_err:.3e}")
+    chain_ms = [cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw_path), reps=10)]
+    chain_rb_ms = [cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw), reps=10)
+                   for _ in range(2)]
+    chain_ms.append(cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw_path), reps=10))
     k1_ms = cuda_ms(lambda: nn_cuda.nn_brute_kernel(q, qm, model, mmask, md2), reps=5, warmup=1)
-    lane_args = ncl.cell_list_post_device(k_rows, order, q, qm, clm, md2)
+    lane_args = ncl.cell_list_post_device(shapes["clamped"]["rows"], order, q, qm, clm, md2)
+
     def lane():
         return ncl._overflow_lane(
             table, order, q, qm, *lane_args, clm, md2, RB=spec["RB"], chunk=T,
             cap_over=spec["cap_over"])
 
     lane_ms = cuda_ms(lane, reps=10)
-    lane_dev_ms = device_ms(lane, ("",))  # every device event of the call
+    lane_dev_ms, lane_api = device_ms(lane, ("",))  # every device event of the call
     plan_ms = cuda_ms(lambda: ncl.cell_list_plan_device(
         q, qm, clm, dims=spec["dims"], chunk=T, perm=kw["perm"]), reps=10)
-    # K2 on the unclamped table: what this card does without RB and the lane
-    u_rows, _ = cell_list_rows_kernel(table, q_s, clm.model_sorted, T)
-    u_idx, _, u_found = ncl.cell_list_post_device(u_rows, order, q, qm, clm, md2)
-    check(torch.equal(u_found, b_found), "unclamped K2 vs K1: found differs")
-    u_agree = (u_idx[u_found] == b_idx[u_found]).double().mean().item()
-    check(u_agree >= 0.999, f"unclamped K2 vs K1: index agreement {u_agree}")
-    u_ms = cuda_ms(lambda: cell_list_rows_kernel(table, q_s, clm.model_sorted, T))
-    u_pairs = int(table[:, 4::3].long().clamp(min=0).sum()) * T
+    post_ms = cuda_ms(lambda: ncl.cell_list_post_device(
+        shapes["unclamped"]["rows"], order, q, qm, clm, md2), reps=10)
     phase(
         7, "kernels B",
-        f"K2 on the unclamped table (no RB, no lane): {u_pairs:.4g} pairs, {u_ms:.4f} ms, "
-        f"found identical to K1, index agreement {u_agree:.6f}",
+        f"one chained NN call, in turns: RB=None (the path) {chain_ms[0]:.4f} / {chain_ms[1]:.4f} ms, "
+        f"RB={spec['RB']} with the lane {chain_rb_ms[0]:.4f} / {chain_rb_ms[1]:.4f} ms; parts timed "
+        f"alone: query plan {plan_ms:.4f} ms, K2 wrapper {ku_ms:.4f} ms, post {post_ms:.4f} ms, "
+        f"overflow lane {lane_ms:.4f} ms ({lane_dev_ms:.4f} ms of it device time, {lane_api:.1f} "
+        f"kernel launches); K1 brute at this shape {k1_ms:.4f} ms",
     )
     phase(
         7, "kernels B",
-        f"chain vs K1 at {q.shape[0]} x {model.shape[0]}: found identical ({int(c_found.sum())}), "
-        f"index agreement {agree:.6f}, max|d2 diff| {d2_err:.3e}; whole chained NN call "
-        f"{chain_ms:.4f} ms (query plan {plan_ms:.4f} ms, K2 {k_ms:.4f} ms, overflow lane "
-        f"{lane_ms:.4f} ms, always run, {lane_dev_ms:.4f} ms of it device time) vs K1 brute "
-        f"{k1_ms:.4f} ms",
+        f"lane decision: K2 on the unclamped table {du_ms:.4f} ms against K2 on the clamped table "
+        f"{d_ms:.4f} ms + the lane's device time {lane_dev_ms:.4f} ms",
     )
+    check(du_ms <= d_ms + lane_dev_ms,
+          "unclamped K2 is slower than clamped K2 plus the lane: the path's RB=None route is the wrong one")
 
     # forced overflow: RB=128 clamps every range of a 30000-query subset;
     # the lane (K1) repairs them all
@@ -510,6 +645,10 @@ def bremen_phases(dev, params_city):
           f"K2 launches {k2_launches} != ICP loop trips {trips} + LUM link calls {link_calls}")
     check(n_chain == CITY_SCANS - 1, f"{n_chain} matches went to the chained engine")
     check(n_redone < n_chain, "every chained match was redone by brute")
+    # the path runs the chain without the overflow lane, so K1 runs only
+    # where a fired guard had a match redone by the brute engine
+    check((k1_launches > 0) == (n_redone > 0),
+          f"K1 launches {k1_launches} on the bremen path with {n_redone} matches redone by brute")
     tags = [list(t) for _m, t in frames]
     lum_iters = tags[0].count(int(AlgoType.LUM))
     check(lum_iters >= 1 and link_calls % len(links) == 0 and link_calls >= lum_iters * len(links),
@@ -537,7 +676,7 @@ def bremen_phases(dev, params_city):
         8, "slice B",
         f"K2 launches {k2_launches} = {trips} chained ICP loop trips + {link_calls} chained LUM "
         f"link calls; matches redone by brute {n_redone} of {n_chain}; K1 launches "
-        f"{k1_launches} (the overflow lane of every K2 call, and brute redos)",
+        f"{k1_launches} (brute redos only: the path runs no overflow lane)",
     )
     phase(
         8, "slice B",
@@ -593,12 +732,14 @@ def bremen_phases(dev, params_city):
 
     profile_match(
         chained_match, n=10, label="first bremen match (chained)",
-        units=lambda r: chained_match.trips, kernel="K2", names=("cell_list_kernel",),
+        units=lambda r: chained_match.trips, kernel="K2", names=K2_KERNELS,
     )
+    # the path gives K2 the unclamped table: the line's numbers are that
+    # shape's; the clamped table's device time stays beside them
     return {
         "launches": k2_launches, "k1_launches": k1_launches, "max_abs_err": k2_err,
-        "ms": k_ms, "plain_ms": p_ms, "device_ms": d_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "instr_bound_ms": instr_ms,
+        "ms": ku_ms, "plain_ms": pu_ms, "device_ms": du_ms, "bound_ms": u_bound_ms,
+        "bound_by": bound_by, "instr_bound_ms": u_instr_ms, "clamped_device_ms": d_ms,
     }
 
 
@@ -697,14 +838,18 @@ def main() -> int:
         m_red.contiguous(), mm_red.contiguous(), md2,
     )
 
-    k1_pairs = q_red.shape[0] * m_red.shape[0]
-    k1_bytes = 12 * (q_red.shape[0] + m_red.shape[0]) + q_red.shape[0] + m_red.shape[0] + 13 * q_red.shape[0]
-    k1_bound, k1_by, k1_instr = nn_bound(k1_pairs, 9, k1_bytes)
+    k1_q, k1_m = q_red.shape[0], m_red.shape[0]
+    k1_pairs = k1_q * k1_m
+    # in: query + its mask, packed model, model + its mask, centre; out: idx, d2, found
+    k1_bytes = 13 * k1_q + 29 * k1_m + 12 + 13 * k1_q
+    k1_slots = LOOP_SLOTS["nn_brute"]
+    k1_bound, k1_by, k1_instr = nn_bound(k1_pairs, k1_bytes, k1_slots)
     phase(
         3, "kernels",
-        f"K1 bound at this shape: {k1_pairs:.4g} pairs x 9 f32 operations over "
-        f"67 TFLOP/s = {k1_bound:.5f} ms (bound by {k1_by}); at the FP32 instruction "
-        f"rate of its inner loop ({FP32_PAIRS_PER_S:.3g} pairs/s) {k1_instr:.5f} ms",
+        f"K1 bound at this shape: {k1_pairs:.4g} pairs x {PAIR_FLOPS} f32 operations over "
+        f"67 TFLOP/s = {k1_bound:.5f} ms (bound by {k1_by}); at the instruction rate of its "
+        f"inner loop ({k1_slots:.2f} slots a pair, {LANE_INSTR_PER_S / k1_slots:.3g} pairs/s) "
+        f"{k1_instr:.5f} ms; measured {k1_pairs / k_dev_ms / 1e9:.4g}e12 pairs/s",
     )
 
     model0 = g(odo_mats[0], locals_[0])
@@ -834,7 +979,7 @@ def main() -> int:
         )
     )
 
-    k2 = bremen_phases(dev, params_city=IcpParams(
+    k2 = bremen_phases(dev, IcpParams(
         max_dist_match2=CITY_DIST**2, max_iterations=50, epsilon=1e-4
     ))
 
@@ -867,6 +1012,7 @@ def main() -> int:
         "bound_by": k2["bound_by"],
         "instr_bound_ms": k2["instr_bound_ms"],
         "library_ms": None,
+        "clamped_device_ms": k2["clamped_device_ms"],
     }]}))
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

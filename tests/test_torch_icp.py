@@ -67,6 +67,49 @@ def test_icp_pair_matches_jax(minimizer):
     assert isinstance(tr.error, float)
 
 
+def test_icp_pair_prepares_the_model_once(monkeypatch):
+    """The model is centred and packed once per match, every iteration
+    ranks against that prepared model, and the result is the one a model
+    prepared anew in every iteration gives."""
+    from tpu3dtk_torch.ops import nn as tnn
+
+    rng = np.random.default_rng(7)
+    cloud = make_room_cloud(rng, n=2000)
+    model, mmask = _pad(cloud, 2048)
+    target, tmask = _pad(cloud + rng.normal(0, 0.5, cloud.shape), 2048)
+    T0 = np.asarray(
+        jm3.euler_to_matrix4([5.0, -3.0, 4.0], [0.01, -0.02, 0.01], xp=np), np.float32
+    )
+    args = [torch.as_tensor(a) for a in (model, mmask, target, tmask, T0)]
+    kw = dict(max_dist_match2=625.0, epsilon=1e-6, max_iterations=50)
+    calls = {"prepare": 0, "nn": 0}
+    prepare, auto = tnn.prepare_brute_model, tnn.nn_brute_auto
+
+    def counting_prepare(*a):
+        calls["prepare"] += 1
+        return prepare(*a)
+
+    def counting_auto(query, qmask, model, mmask, max_dist2):
+        calls["nn"] += 1
+        assert isinstance(model, tnn.BruteModel) and mmask is None
+        return auto(query, qmask, model, mmask, max_dist2)
+
+    monkeypatch.setattr(tnn, "prepare_brute_model", counting_prepare)
+    monkeypatch.setattr(tnn, "nn_brute_auto", counting_auto)
+    tr = ticp.icp_pair(*args, **kw)
+    assert calls["prepare"] == 1 and calls["nn"] == tr.iterations > 3
+
+    def bare_pairs(bm, tgt_global, tmask, max_dist2):
+        idx, _d2, found = auto(tgt_global, tmask, bm.model, bm.mmask, max_dist2)
+        return bm.model[idx], found
+
+    monkeypatch.setattr(ticp, "_find_pairs", bare_pairs)
+    tr2 = ticp.icp_pair(*args, **kw)
+    assert torch.equal(tr.T, tr2.T) and tr.iterations == tr2.iterations
+    assert tr.error == tr2.error and tr.n_pairs == tr2.n_pairs
+    np.testing.assert_allclose(tr.T.numpy(), np.eye(4), atol=0.1)
+
+
 def test_icp_no_pairs_is_identity():
     rng = np.random.default_rng(1)
     cloud = make_room_cloud(rng, n=500)

@@ -81,6 +81,48 @@ def test_icp_pair_chained_matches_jax(rng):
     assert abs(tres.iterations - bres.iterations) <= 1
 
 
+def test_chained_engines_run_without_clamp_and_lane(rng, monkeypatch):
+    """The route the engines take: ``nn_cell_list_chained(RB=None)``, so
+    neither ``clamp_table`` nor the overflow lane runs, even with a spec
+    whose RB is far below the chunks' candidate ranges; the poses stay
+    those of the brute engine (both exact: 0.01 cm / 1e-6, iterations
+    within 1)."""
+    from tpu3dtk_torch.models import graphslam as tgs
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+
+    def refuse(*a, **k):
+        raise AssertionError("the RB route ran")
+
+    monkeypatch.setattr(ncl, "clamp_table", refuse)
+    monkeypatch.setattr(ncl, "_overflow_lane", refuse)
+    world, target, _ = _pair(rng)
+    spec = dict(ncl.cell_list_spec(world, 25.0), RB=128)
+    args = (
+        torch.as_tensor(world), torch.ones(len(world), dtype=torch.bool),
+        torch.as_tensor(target), torch.ones(len(target), dtype=torch.bool),
+        torch.eye(4),
+    )
+    kw = dict(max_dist_match2=625.0, epsilon=1e-7, max_iterations=40)
+    tres = ticp.icp_pair_chained(*args, spec=spec, **kw)
+    bres = ticp.icp_pair(*args, **kw)
+    assert tres.maxocc == 0
+    Tt, Tb = tres.T.double().numpy(), bres.T.double().numpy()
+    np.testing.assert_allclose(Tt[:3, 3], Tb[:3, 3], atol=0.01)
+    np.testing.assert_allclose(Tt[:3, :3], Tb[:3, :3], atol=1e-6)
+    assert abs(tres.iterations - bres.iterations) <= 1
+    # the LUM link engine on the same route: the brute engine's sums
+    pts = torch.stack([args[0], ticp._chain_transform(bres.T, args[2])])
+    masks = torch.ones(pts.shape[:2], dtype=torch.bool)
+    links = np.asarray([[0, 1], [1, 0]])
+    spec2 = dict(ncl.cell_list_spec(pts.reshape(-1, 3).numpy(), 25.0), RB=128)
+    C, CD, m, guard = tgs.link_covariances_chained(pts, masks, links, 625.0, spec2)
+    bC, bCD, bm = tgs.link_covariances(pts, masks, links, 625.0)
+    assert not guard
+    np.testing.assert_array_equal(m, bm.numpy())
+    np.testing.assert_allclose(C, bC.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(CD, bCD.numpy(), rtol=1e-6, atol=1e-6)
+
+
 def test_chain_update_freezes_pose_once_done(rng):
     """After ``done`` the pose stays and the iteration count stops."""
     world, target, _ = _pair(rng)

@@ -108,6 +108,82 @@ def test_ties_keep_lowest_index_and_all_masked():
     assert (d2 == np.float32(tnn.BIG)).all()
 
 
+def _jax_k1(q, qm, m, mm, md2):
+    return tuple(
+        np.asarray(a) for a in nn_pallas.nn_brute_mxu(
+            jnp.asarray(q), jnp.asarray(qm), jnp.asarray(m), jnp.asarray(mm),
+            md2, precise=True,
+        )
+    )
+
+
+@pytest.mark.parametrize("case", ["masked", "masked_tails", "all_masked"])
+def test_prepared_model_equals_bare_call(case):
+    """A model prepared once (``prepare_brute_model``) gives, through
+    ``nn_brute`` and ``nn_brute_auto``, the bare call's answers bit for
+    bit; both agree with the JAX Pallas K1 and the f64 oracle under the
+    bounds stated at the top."""
+    rng = np.random.default_rng({"masked": 11, "masked_tails": 12, "all_masked": 13}[case])
+    Q, M = 700, 5000
+    q, m = _clouds(rng, Q, M, 600.0)
+    qm = rng.uniform(size=Q) > 0.05
+    if case == "masked":
+        mm = rng.uniform(size=M) > 0.15
+    elif case == "masked_tails":  # clouds padded to a cap, as the ICP path pads them
+        mm, qm = np.arange(M) < 4200, np.arange(Q) < 650
+        m[4200:], q[650:] = 0.0, 0.0
+    else:
+        mm = np.zeros(M, bool)
+    md2 = 625.0
+    bm = tnn.prepare_brute_model(_t(m), _t(mm))
+    assert bm.packed.shape == (M, 4) and bm.packed.dtype == torch.float32
+    assert torch.isinf(bm.packed[~_t(mm), :3]).all() and not bm.packed[:, 3].any()
+    assert torch.equal(bm.center, tnn.masked_center(_t(m), _t(mm)))
+    assert torch.equal(bm.packed[_t(mm), :3], (_t(m) - bm.center)[_t(mm)])
+    bare = tnn.nn_brute(_t(q), _t(qm), _t(m), _t(mm), md2)
+    for out in (
+        tnn.nn_brute(_t(q), _t(qm), bm, None, md2),
+        tnn.nn_brute_auto(_t(q), _t(qm), bm, None, md2),
+        tnn.nn_brute_auto(_t(q), _t(qm), _t(m), _t(mm), md2),
+    ):
+        for x, y in zip(out, bare):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    idx, d2, found = (a.numpy() for a in bare)
+    jidx, jd2, jfound = _jax_k1(q, qm, m, mm, md2)
+    np.testing.assert_array_equal(found, jfound)
+    if case == "all_masked":
+        assert not found.any() and (idx == 0).all() and (d2 == np.float32(tnn.BIG)).all()
+        return
+    assert mm[idx[found]].all()
+    assert (idx[found] == jidx[found]).mean() > 0.999
+    np.testing.assert_allclose(d2[found], jd2[found], atol=1e-2)
+    midx = np.flatnonzero(mm)
+    d, k = cKDTree(m[midx].astype(np.float64)).query(q.astype(np.float64))
+    assert (idx[qm] == midx[k][qm]).mean() > 0.999
+    np.testing.assert_allclose(d2[qm], (d**2)[qm], atol=1e-2)
+    np.testing.assert_array_equal(found, qm & (d2 < np.float32(md2)))
+
+
+def test_prepared_model_argument_errors():
+    m = torch.zeros((5, 3))
+    ok = torch.ones(5, dtype=torch.bool)
+    bm = tnn.prepare_brute_model(m, ok)
+    with pytest.raises(ValueError, match="own mask"):
+        tnn.nn_brute(m, ok, bm, ok, 1.0)
+    with pytest.raises(ValueError, match="needs its mask"):
+        tnn.nn_brute(m, ok, m, None, 1.0)
+    with pytest.raises(ValueError):
+        tnn.prepare_brute_model(torch.zeros((5, 4)), ok)
+    with pytest.raises(ValueError):
+        tnn.prepare_brute_model(m, ok[:4])
+    with pytest.raises(TypeError):
+        tnn.prepare_brute_model(m.double(), ok)
+    with pytest.raises(TypeError):
+        tnn.prepare_brute_model(m, ok.to(torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):  # the kernel wrapper: no fallback
+        nn_cuda.nn_brute_kernel(m, ok, bm, None, 1.0)
+
+
 def test_launch_counter_stays_zero_on_cpu():
     rng = np.random.default_rng(3)
     q, m = _clouds(rng, 64, 128, 100.0)

@@ -200,6 +200,124 @@ def test_chained_matches_oracle_and_jax(rng, case):
     np.testing.assert_allclose(hd2[ofound], od2[ofound], rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("case", ["masked_sparse", "chained_6000x2000", "city", "rb128"])
+def test_chained_without_rb_matches_oracle_and_jax(rng, monkeypatch, case):
+    """``RB=None``, the route the engines take: the unclamped table, no
+    lane, ``overflow`` false; exact against the f64 oracle and the port's
+    brute engine, the JAX chain (with its RB and lane) within its rank
+    bound.  "rb128": a model built for RB = 128, where the RB route needs
+    the lane for every chunk; here nothing is clamped."""
+    if case == "rb128":
+        m, mmask, q, qmask, spec = _overflow_setup(rng)
+        max_dist, build_spec = 25.0, dict(spec, RB=128)
+    else:
+        _, m, mmask, q, qmask, max_dist = next(c for c in _cases(rng) if c[0] == case)
+        spec = npl.cell_list_spec(m[mmask], max_dist, queries=[q])
+        build_spec = spec
+    md2 = max_dist**2
+    jclm, _, _, _ = _build_both(m, mmask, spec, max_dist)
+    _, _, tclm, _ = _build_both(m, mmask, build_spec, max_dist)
+    kw = dict(dims=spec["dims"], chunk=spec["chunk"], perm=tuple(spec["perm"]))
+    calls = []
+    with monkeypatch.context() as mp:
+        mp.setattr(ncl, "_overflow_lane", lambda *a, **k: calls.append(1))
+        tidx, td2, tfound, tovf, toob = (
+            x.numpy() for x in ncl.nn_cell_list_chained(
+                _t(q), _t(qmask), tclm, md2, RB=None, **kw)
+        )
+    assert not calls and tovf.dtype == bool and not tovf and int(toob) == 0
+    oidx, od2, ofound = _oracle(q, qmask, m, mmask, md2)
+    np.testing.assert_array_equal(tfound, ofound)
+    np.testing.assert_array_equal(tidx[ofound], oidx[ofound])
+    np.testing.assert_allclose(td2[ofound], od2[ofound], rtol=1e-5, atol=1e-4)
+    bidx, bd2, bfound = tnn.nn_brute(_t(q), _t(qmask), _t(m), _t(mmask), md2)
+    np.testing.assert_array_equal(tfound, bfound.numpy())
+    np.testing.assert_array_equal(tidx[tfound], bidx.numpy()[tfound])
+    np.testing.assert_array_equal(td2[tfound], bd2.numpy()[tfound])
+    jidx, jd2, jfound, jovf, joob = (
+        np.asarray(x) for x in npl.nn_cell_list_chained(
+            jnp.asarray(q), jnp.asarray(qmask), jclm, jnp.float32(md2),
+            RB=spec["RB"], cap_over=spec["cap_over"], **kw)
+    )
+    assert not jovf and int(joob) == 0
+    assert (jfound == tfound).mean() >= 0.999
+    both = jfound & tfound
+    ext = float(np.ptp(m[mmask], axis=0).max())
+    gap = jd2[both] - td2[both]
+    assert gap.min() > -1e-2 and gap.max() < 2.0 * 1.2e-5 * ext**2
+    # the RB route of the port on the same model: the same answers
+    ridx, rd2, rfound, rovf, _ = ncl.nn_cell_list_chained(
+        _t(q), _t(qmask), tclm, md2, RB=build_spec["RB"], cap_over=32768, **kw)
+    assert not bool(rovf)
+    np.testing.assert_array_equal(rfound.numpy(), tfound)
+    np.testing.assert_array_equal(ridx.numpy()[tfound], tidx[tfound])
+
+
+def _work_items_ref(table, model_rows, item_rows):
+    """numpy reference of cell_list_work_items, chunk by chunk."""
+    prefix, totals = [0], []
+    for row in np.asarray(table, np.int64):
+        total = 0
+        for r in range(9):
+            start = min(max(row[2 + 3 * r] + row[3 + 3 * r], 0), model_rows)
+            total += min(max(row[4 + 3 * r], 0), model_rows - start)
+        totals.append(total)
+        prefix.append(prefix[-1] + -(-total // item_rows))
+    return np.asarray(prefix), np.asarray(totals)
+
+
+@pytest.mark.parametrize("item_rows", [1, 128, 2048])
+def test_work_items_match_numpy_on_heavy_tailed_tables(rng, item_rows):
+    """Item arithmetic of K2's work split: an empty chunk, a chunk of
+    exactly item_rows rows, one of 9 · RB rows, ranges clipped at the
+    model's end and negative lengths, among heavy-tailed random chunks."""
+    RB, model_rows, W = 4608, 60000, 40
+    table = np.zeros((W, 29), np.int32)
+    lens = np.minimum(rng.pareto(1.2, (W, 9)) * 200, RB).astype(np.int32)
+    starts = rng.integers(0, model_rows - RB, (W, 9)).astype(np.int32)
+    table[:, 2::3] = starts // 128 * 128
+    table[:, 3::3] = starts % 128
+    table[:, 4::3] = lens
+    table[0, 4::3] = 0                                     # an empty chunk
+    table[1, 4::3] = 0
+    table[1, 4] = item_rows                                # exactly one item
+    table[2, 4::3] = RB                                    # 9 · RB rows
+    table[3, 2], table[3, 3], table[3, 4] = model_rows - 128, 100, 500  # clipped: 28 rows
+    table[4, 4] = -7                                       # negative length: none
+    table[5, 2], table[5, 4] = model_rows + 256, 50        # starts past the end: none
+    prefix, totals = ncl.cell_list_work_items(_t(table), model_rows, item_rows)
+    want_prefix, want_totals = _work_items_ref(table, model_rows, item_rows)
+    assert prefix.dtype == torch.int64 and prefix.shape == (W + 1,)
+    np.testing.assert_array_equal(prefix.numpy(), want_prefix)
+    np.testing.assert_array_equal(totals.numpy(), want_totals)
+    assert prefix[1] == prefix[0] == 0 and prefix[2] == 1
+    assert totals[2] == 9 * RB and prefix[3] - prefix[2] == -(-9 * RB // item_rows)
+    # every candidate row of every chunk lies in exactly one item
+    n_items = (prefix[1:] - prefix[:-1]).numpy()
+    assert ((n_items - 1) * item_rows < want_totals)[want_totals > 0].all()
+    assert (n_items * item_rows >= want_totals).all()
+    with pytest.raises(ValueError):
+        ncl.cell_list_work_items(_t(table), model_rows, 0)
+
+
+def test_work_items_on_a_planned_table(rng):
+    """On a table from the device plan the items cover what the plain K2
+    walks: the totals are its per-chunk candidate rows."""
+    m, mmask, q, qmask, spec = _overflow_setup(rng)
+    _, _, tclm, _ = _build_both(m, mmask, spec, 25.0)
+    table = ncl.cell_list_plan_device(
+        _t(q), _t(qmask), tclm, dims=spec["dims"], chunk=spec["chunk"],
+        perm=tuple(spec["perm"]),
+    )[0]
+    rows = tclm.model_sorted.shape[0]
+    prefix, totals = ncl.cell_list_work_items(table, rows, 64)
+    want_prefix, want_totals = _work_items_ref(table.numpy(), rows, 64)
+    np.testing.assert_array_equal(prefix.numpy(), want_prefix)
+    np.testing.assert_array_equal(totals.numpy(), want_totals)
+    np.testing.assert_array_equal(totals.numpy(), table[:, 4::3].sum(1).numpy())
+    assert int(prefix[-1]) > table.shape[0]  # chunks are cut into several items
+
+
 def test_boundary_exclusion():
     """Strict d² < max_dist2 (tests/test_nn_pallas.py:53-60), through the
     host-planned and the chained form."""

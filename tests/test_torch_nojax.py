@@ -20,6 +20,7 @@ from tpu3dtk_torch.io import cache, scandir, writer
 from tpu3dtk_torch.models import graphslam, icp, minimizers, sequence
 from tpu3dtk_torch.ops import cuda_build, nn, nn_cuda, reduction
 from tpu3dtk_torch.ops import nn_cell_list, nn_cell_list_cuda
+from tpu3dtk_torch.tools import kernel_tuning
 assert callable(icp.icp_pair_chained) and callable(synth.synth_city)
 assert callable(graphslam.do_graph_slam) and callable(nn_cell_list.cell_list_rows)
 a = slam6d.build_parser().parse_args(["d", "-n", "g.net", "-I", "5", "-D", "150"])

@@ -182,10 +182,10 @@ def link_covariances_chained(points_g, masks, links, max_dist2, spec):
                 dims=spec["dims"], RB=spec["RB"], perm=perm,
             )
         clm, oob_m = models[i]
+        # RB=None: unclamped table, no overflow lane (see icp_pair_chained)
         idx, _d2, found, overflow, oob_q = ncl.nn_cell_list_chained(
             points_g[j], masks[j], clm, md2,
-            dims=spec["dims"], RB=spec["RB"], chunk=spec["chunk"],
-            perm=perm, cap_over=spec.get("cap_over", 8192),
+            dims=spec["dims"], RB=None, chunk=spec["chunk"], perm=perm,
         )
         metrics.count(CHAINED_LINK_CALLS)
         C, CD, m = lum_pair_stats(points_g[i][idx], points_g[j], found)

@@ -5,8 +5,9 @@ Each iteration, on the device of the clouds:
 
   1. transform the target points by the current pose (local points stay
      immutable; the pose is composed instead),
-  2. nearest neighbours against the model (``ops.nn.nn_brute_auto``: the
-     CUDA kernel on a card, the plain version on the CPU),
+  2. nearest neighbours against the model, prepared once per match
+     (``ops.nn.prepare_brute_model``, ``ops.nn.nn_brute_auto``: the CUDA
+     kernel on a card, the plain version on the CPU),
   3. masked centred pair statistics (ref icp6D.cc:144-191),
   4. a closed-form minimizer (``models.minimizers``),
   5. pose update T <- align @ T (ref transformMatrix, scan.cc:878-898),
@@ -73,13 +74,13 @@ class IcpResult(NamedTuple):
     maxocc: int = 0
 
 
-def _find_pairs(model, mmask, tgt_global, tmask, max_dist2):
-    """Closest-point correspondences for one iteration: matched model
-    points [N,3] and the accept mask [N]."""
+def _find_pairs(bm: nn_ops.BruteModel, tgt_global, tmask, max_dist2):
+    """Closest-point correspondences for one iteration against the
+    prepared model: matched model points [N,3] and the accept mask [N]."""
     idx, _d2, found = nn_ops.nn_brute_auto(
-        tgt_global, tmask, model, mmask, max_dist2
+        tgt_global, tmask, bm, None, max_dist2
     )
-    return model[idx], found
+    return bm.model[idx], found
 
 
 def icp_pair(
@@ -109,7 +110,8 @@ def icp_pair(
         )
     align_fn = mz.get_minimizer(minimizer)
     dev = model.device
-    model = model.to(torch.float32)
+    # the model is fixed for the whole match: centred and packed once
+    bm = nn_ops.prepare_brute_model(model.to(torch.float32).contiguous(), mmask)
     target_local = target_local.to(torch.float32)
     T = torch.as_tensor(T0, dtype=torch.float32, device=dev)
     eps = float(np.float32(epsilon))
@@ -127,7 +129,7 @@ def icp_pair(
             keep = torch.randint(0, subsample, tmask.shape, generator=gen) == 0
             it_mask = tmask & keep.to(dev)
         tgt_global = math3d.transform3(T, target_local)
-        m_pts, found = _find_pairs(model, mmask, tgt_global, it_mask, md2)
+        m_pts, found = _find_pairs(bm, tgt_global, it_mask, md2)
         stats = mz.pair_stats(m_pts, tgt_global, found)
         align, err = align_fn(stats)
         # the one device->host read of the iteration
@@ -240,12 +242,13 @@ def icp_pair_chained(
     done flag only every ``check_every`` iterations, so the
     per-iteration NN cost is O(Q · occupancy) instead of O(Q · M).
 
-    Exactness guards: the per-iteration lane-overflow and
-    out-of-grid-box scalars accumulate on the device; if either fired,
-    the caller must redo the match with the brute engine (returned via
-    ``maxocc`` > 0).  ``spec`` comes from
-    ``ops.nn_cell_list.cell_list_spec``; without one it is sized over
-    the model, and the brute engine runs when no spec fits.
+    Exactness guards: the per-iteration out-of-grid-box scalars (and
+    the lane-overflow scalar, constantly false on the unclamped route
+    taken here) accumulate on the device; if one fired, the caller must
+    redo the match with the brute engine (returned via ``maxocc`` > 0).
+    ``spec`` comes from ``ops.nn_cell_list.cell_list_spec``; without one
+    it is sized over the model, and the brute engine runs when no spec
+    fits.
     """
     from ..ops import nn_cell_list as ncl
 
@@ -280,10 +283,11 @@ def icp_pair_chained(
     eps = float(epsilon)
     for it in range(max_iterations):
         tgt_g = _chain_transform(T, target_local)
+        # RB=None: this card's K2 walks ranges of any length, so the table
+        # is not clamped and no overflow lane runs
         idx, _d2, found, overflow, oob_q = ncl.nn_cell_list_chained(
-            tgt_g, tmask, clm, md2, dims=spec["dims"], RB=spec["RB"],
+            tgt_g, tmask, clm, md2, dims=spec["dims"], RB=None,
             chunk=spec.get("chunk", 256), perm=perm,
-            cap_over=spec.get("cap_over", 8192),
         )
         metrics.count(CHAINED_TRIPS)
         T, conv, npairs = _chain_update_conv(

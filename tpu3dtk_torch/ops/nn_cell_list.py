@@ -37,7 +37,13 @@ What differs from the JAX package, on purpose:
 - :func:`_overflow_lane` has no device-side branch to lean on: on the
   card the lane always runs (no host read inside the chain), on the CPU
   it runs when the overflow count, free to read there, is not zero.  The
-  results are the same either way.
+  results are the same either way;
+- the static width RB is the TPU kernel's need, not this card's: K2 here
+  walks a range of any length and shares long chunks out over the card
+  (:func:`cell_list_work_items`), so :func:`nn_cell_list_chained` with
+  ``RB=None`` ranks the unclamped table and runs no lane.  That is the
+  route the ICP and LUM engines take; the clamp and the lane stay
+  reachable through an integer ``RB``.
 """
 
 from __future__ import annotations
@@ -52,8 +58,8 @@ from . import nn as nn_ops
 __all__ = [
     "CellListModel", "build_cell_list_model", "cell_list_plan_device",
     "cell_list_post_device", "cell_list_rows", "cell_list_rows_auto",
-    "cell_list_spec", "clamp_table", "nn_cell_list", "nn_cell_list_chained",
-    "plan_cell_list",
+    "cell_list_spec", "cell_list_work_items", "clamp_table", "nn_cell_list",
+    "nn_cell_list_chained", "plan_cell_list",
 ]
 
 INF = float("inf")
@@ -81,6 +87,34 @@ def _neighbour_offsets(ny: int, nz: int) -> list[int]:
 # ---------------------------------------------------------------------------
 
 
+def _clipped_ranges(table, model_rows: int):
+    """First row and length ([W, 9] int64 each) of the table's ranges,
+    clipped to the model's rows (what K2 and its plain version walk)."""
+    starts = (table[:, 2::3] + table[:, 3::3]).long().clamp(0, model_rows)
+    lens = torch.minimum(table[:, 4::3].long().clamp(min=0), model_rows - starts)
+    return starts, lens
+
+
+def cell_list_work_items(table, model_rows: int, item_rows: int):
+    """Cut every chunk's candidate rows into work items for kernel K2, on
+    the table's device and with no host read: the plain version of what
+    K2's init kernel computes on the card.
+
+    A chunk's candidates are its 9 clipped ranges laid end to end; item k
+    of a chunk is rows [k * item_rows, (k + 1) * item_rows) of that
+    sequence.  Returns (prefix [W+1] int64, the exclusive prefix of the
+    chunks' item counts, so chunk w owns items prefix[w]..prefix[w+1]-1
+    and prefix[W] is their number; totals [W] int64, the chunks' candidate
+    rows).  A chunk without candidates has no item."""
+    if item_rows < 1:
+        raise ValueError(f"cell_list_work_items: item_rows {item_rows} < 1")
+    _starts, lens = _clipped_ranges(table, model_rows)
+    totals = lens.sum(dim=1)
+    prefix = torch.zeros(table.shape[0] + 1, dtype=torch.int64, device=table.device)
+    prefix[1:] = torch.cumsum((totals + (item_rows - 1)) // item_rows, dim=0)
+    return prefix, totals
+
+
 def cell_list_rows(table, q_sorted, model_sorted, chunk: int):
     """The plain PyTorch version of kernel K2.
 
@@ -96,8 +130,7 @@ def cell_list_rows(table, q_sorted, model_sorted, chunk: int):
     W = table.shape[0]
     dev = table.device
     Mrows = model_sorted.shape[0]
-    starts = (table[:, 2::3] + table[:, 3::3]).long().clamp(0, Mrows)
-    lens = torch.minimum(table[:, 4::3].long().clamp(min=0), Mrows - starts)
+    starts, lens = _clipped_ranges(table, Mrows)
     lens_host = lens.cpu().numpy()
     q = q_sorted[:, :3].reshape(W, chunk, 3)
     best = torch.full((W, chunk), INF, dtype=torch.float32, device=dev)
@@ -476,24 +509,32 @@ def _overflow_lane(
 
 
 def nn_cell_list_chained(query, qmask, clm: CellListModel, max_dist2,
-                         *, dims, RB: int, chunk: int = 256,
+                         *, dims, RB: int | None, chunk: int = 256,
                          perm=(0, 1, 2), cap_over: int = 8192):
     """Cell-list NN as a chain of device ops with no host read inside
-    (for CUDA tensors).  Chunks whose candidate range exceeds RB are
-    repaired exactly by the brute overflow lane.  Returns (idx, d2,
-    found, overflow, oob) — overflow/oob are DEVICE scalars the caller
-    checks lazily; overflow means the lane capacity was exceeded and the
+    (for CUDA tensors).  Returns (idx, d2, found, overflow, oob) —
+    overflow/oob are DEVICE scalars the caller checks lazily.
+
+    ``RB=None``: K2 ranks the table as planned, ranges of any length; no
+    clamp, no lane, ``overflow`` is constantly false.  An integer ``RB``
+    is the JAX package's contract: ranges are clamped to it, chunks whose
+    candidate range exceeds it are repaired exactly by the brute overflow
+    lane, and ``overflow`` means the lane's capacity was exceeded and the
     whole match must be redone with brute."""
     max_dist2 = float(np.float32(max_dist2))
     table, q_s, order, _maxlen, oob = cell_list_plan_device(
         query, qmask, clm, dims=dims, chunk=chunk, perm=tuple(perm)
     )
     rows, _score = cell_list_rows_auto(
-        clamp_table(table, RB), q_s, clm.model_sorted, chunk
+        table if RB is None else clamp_table(table, RB), q_s,
+        clm.model_sorted, chunk,
     )
     idx, d2, found = cell_list_post_device(
         rows, order, query, qmask, clm, max_dist2
     )
+    if RB is None:
+        overflow = torch.zeros((), dtype=torch.bool, device=query.device)
+        return idx, d2, found, overflow, oob
     idx, d2, found, n_over = _overflow_lane(
         table, order, query, qmask, idx, d2, found, clm, max_dist2,
         RB=RB, chunk=chunk, cap_over=cap_over,
