@@ -17,19 +17,37 @@ exit code and no result line):
    (model, mask) call, at the main path's shapes (the first h468 match as
    the path gives it: reduced, padded to a multiple of 512 and masked;
    the raw 16384 x 16384 scan pair; an awkward masked 70001-point model;
-   the strict d² == max_dist2 boundary), and against a ranking that
-   prepares nothing (its own centre and mask term from the raw model),
-   with wrapper times, the kernels' device time and the launches per call
-   (at most 3 prepared).
-4. slice   — ``torchslam`` (cli.slam6d.main) on the h468 ring corridor
-   written as a uos directory (468 scans x 16384 points, -r 10 -O 1
-   -d 50 -i 50 --epsICP 1e-6); the kernel's launch count must equal the
-   ICP iterations; relative-pose error against ground truth is gated.
-5. plain   — the first 8 scans through SequenceRegistration on the card
+   the strict d² == max_dist2 boundary; the ELCH loop-closure windows,
+   74240 x 44544 with whole scans masked out, built by
+   icp._window_build from all 468 resident scans), and against a ranking
+   that prepares nothing (its own centre and mask term from the raw
+   model), with wrapper times, the kernels' device time and the launches
+   per call (at most 3 prepared).
+4. slice   — ``torchslam`` (cli.slam6d.main), sequential ICP only, on the
+   h468 ring corridor written as a uos directory (468 scans x 16384
+   points, -r 10 -O 1 -d 50 -i 50 --epsICP 1e-6); the kernel's launch
+   count must equal the ICP iterations; relative-pose error against
+   ground truth is gated.
+5. plain   — the first 4 scans through SequenceRegistration on the card
    and on the CPU (the plain path): same poses and iteration counts.
 6. profile — the first h468 match (scan 1 against scan 0) once more under
    torch.profiler: kernel launches and device time per ICP iteration, the
    device's busy share, K1's share of the device time.
+11. graph  — the main path: ``GraphPipeline`` (sequential ICP, loop
+   detection, ELCH slerp closure, cached 1-iteration LUM per closure,
+   final LUM relax) on all 468 h468 scans with bench.py's parameters;
+   prints wall, the phase split, closures, links, cache counts and
+   resident bytes; K1's launch count must equal sequential ICP
+   iterations + loop-ICP iterations + cache refreshes + final-relax link
+   calls; ATE rmse must be below odometry's and <= 21 cm.  The tenth
+   closure runs under torch.profiler, and so does one more final-relax
+   iteration after the run.
+12. cli graph — ``torchslam -L 4 -G 1`` on a 60-scan synth_loop
+   directory: exit 0, ELCH- and LUM-tagged frames, ATE below odometry's.
+13. plain graph — the same GraphPipeline on a 32-scan ring of 2048-point
+   scans (a corridor a third of the h468 one's size, so the clouds are as
+   dense as there) on the card and on the CPU (the plain path): same
+   closures, at least two, and the same poses.
 7. kernels B — K2 (the cell-list kernel) against its plain version at the
    bremen path's shape (scans 0 and 1 of the 13 x 1M-point city sequence
    reduced on the card, the first match's first NN call), on the table
@@ -80,6 +98,10 @@ MAX_DIST = 50.0
 # accuracy gate on the consecutive relative-pose translation error (cm):
 # the JAX package gave 0.16-0.56 cm on scans 1-4 of this data (PERF.md)
 GATE_MEDIAN_CM = 1.0
+# the GraphPipeline at this regime (bench.py:413-425); ATE gate: the JAX
+# package's own result is 18.42 cm (BENCH_r05.json; odometry 68.58 cm)
+GRAPH_ATE_GATE_CM = 21.0
+LAP_SCANS = 360  # scans per lap: scan 360 revisits scan 0 (1.3 laps in 468)
 
 # bremen regime (bench.py:462-537, scripts/make_golden.py::synth_city)
 CITY_SCANS = 13
@@ -294,8 +316,56 @@ def nn_bound(pairs, nbytes, slots):
     return max(ops_ms, bytes_ms), by, pairs * slots / LANE_INSTR_PER_S * 1e3
 
 
-def profile_match(run, n=6, label="first h468 match", units=None,
-                  kernel="K1", names=K1_KERNELS):
+def profile_region(fn):
+    """``fn()`` once under torch.profiler: the CUDA runtime's kernel
+    launches, the kernels and copies the card ran, their device time and
+    K1's / K2's part (ms), and the wall time of the profiled call (ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = prof.events()
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    copies = sum(1 for e in dev if e.name.startswith(("Memcpy", "Memset")))
+
+    def part_ms(names):
+        return sum(e.time_range.elapsed_us() for e in dev
+                   if any(k in e.name for k in names)) / 1e3
+
+    return {
+        "wall_ms": wall_ms,
+        "api": sum(1 for e in ev if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name),
+        "kernels": len(dev) - copies,
+        "copies": copies,
+        "device_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+        "K1": part_ms(K1_KERNELS),
+        "K2": part_ms(K2_KERNELS),
+    }
+
+
+def profile_text(p, per=1, kernel="K1", busy_of=None):
+    """The numbers of :func:`profile_region` divided by ``per`` units; the
+    busy share against ``busy_of`` = (wall ms, its name), by default the
+    profiled call's own wall time."""
+    head = f"{p['api'] / per:.2f} kernel launches (CUDA runtime calls)"
+    if p["device_ms"] == 0:
+        return head + "; device time not measured: the trace holds no device activity"
+    wall_ms, wall_name = busy_of or (p["wall_ms"], f"the {p['wall_ms']:.1f} ms profiled")
+    return (
+        f"{head}, {p['kernels'] / per:.2f} kernels and {p['copies'] / per:.2f} copies/sets on the "
+        f"card, device time {p['device_ms'] / per:.4f} ms ({kernel} {p[kernel] / per:.4f} ms, "
+        f"{100 * p[kernel] / p['device_ms']:.1f}% of it); device busy "
+        f"{100 * p['device_ms'] / wall_ms:.1f}% of {wall_name}"
+    )
+
+
+def profile_match(run, n=6, label="first h468 match", units=None, kernel="K1"):
     """One ICP match (``run()`` returns its IcpResult) under
     torch.profiler: per-iteration counts of the CUDA runtime's kernel
     launches, of the kernels and copies the card ran, and of device
@@ -303,8 +373,6 @@ def profile_match(run, n=6, label="first h468 match", units=None,
     ``units(res)``: how many loop trips the match made (default: its
     iterations)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
@@ -312,40 +380,16 @@ def profile_match(run, n=6, label="first h468 match", units=None,
     res = run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res_p = run()
-        torch.cuda.synchronize()
     units = units or (lambda r: r.iterations)
     it = units(res)
-    check(units(res_p) == it, "the profiled match ran another iteration count")
-    ev = prof.events()
-    api = sum(1 for e in ev if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name)
-    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
-    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev)
-    k1_us = sum(
-        e.time_range.elapsed_us() for e in dev
-        if any(k in e.name for k in names)
-    )
-    check(api > 0, "the profiler saw no kernel launches in the match")
-    if busy_us == 0:
-        phase(
-            n, "profile",
-            f"{label}: {it} ICP loop trips, {wall_ms / it:.4f} ms per iteration "
-            f"unprofiled; per iteration: {api / it:.2f} kernel launches (CUDA "
-            "runtime calls); device time not measured: the trace holds no "
-            "device activity",
-        )
-        return
+    profiled = []
+    p = profile_region(lambda: profiled.append(run()))
+    check(units(profiled[0]) == it, "the profiled match ran another iteration count")
+    check(p["api"] > 0, "the profiler saw no kernel launches in the match")
     phase(
         n, "profile",
-        f"{label}: {it} ICP loop trips, {wall_ms / it:.4f} ms per "
-        f"iteration unprofiled; per iteration: {api / it:.2f} kernel launches "
-        f"(CUDA runtime calls), {(len(dev) - len(copies)) / it:.2f} kernels and "
-        f"{len(copies) / it:.2f} copies/sets on the card, device time "
-        f"{busy_us / it / 1e3:.4f} ms ({kernel} {k1_us / it / 1e3:.4f} ms, "
-        f"{100 * k1_us / busy_us:.1f}% of it); device busy "
-        f"{100 * busy_us / 1e3 / wall_ms:.1f}% of the unprofiled match",
+        f"{label}: {it} ICP loop trips, {wall_ms / it:.4f} ms per iteration unprofiled; per "
+        f"iteration: {profile_text(p, it, kernel, (wall_ms, 'the unprofiled match'))}",
     )
 
 
@@ -354,6 +398,242 @@ def ate_rmse(mats, ref):
 
     d = np.stack([m[:3, 3] for m in mats]) - np.stack([m[:3, 3] for m in ref])
     return float(np.sqrt((d**2).sum(1).mean()))
+
+
+def fresh_scans(src, device):
+    """New Scans at the odometry poses sharing ``src``'s reduced points."""
+    from tpu3dtk_torch.core.scan import Scan
+
+    out = []
+    for s0 in src:
+        s = Scan.from_points(s0.xyz, s0.identifier, s0.transMatOrg)
+        s.device = device
+        s.set_reduction(s0.reduction_voxel, s0.reduction_nrpts)
+        s._reduced_local = s0.reduced_local()
+        out.append(s)
+    return out
+
+
+def graph_pipe(device, **kw):
+    """GraphPipeline with bench.py:413-425's parameters."""
+    from tpu3dtk_torch.models.graph_pipeline import GraphPipeline
+    from tpu3dtk_torch.models.icp import IcpParams
+
+    return GraphPipeline(
+        icp_params=IcpParams(max_dist_match2=MAX_DIST**2, max_iterations=50, epsilon=1e-6),
+        lum_max_dist2=MAX_DIST**2, lum_iterations=10, lum_epsilon=0.1,
+        closure_lum_iterations=1, elch=True, cldist=300.0, loopsize=10,
+        device=device, **kw,
+    )
+
+
+def graph_phases(reduced, true_mats, odo_mats, seq_only):
+    """Phases 11-13: the GraphPipeline main path.  ``reduced``: all h468
+    scans, reduced on the card; ``seq_only``: (ATE, median relative-pose
+    error) of phase 4's sequential-only run.  Returns K1's launch count on
+    the main path."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io.frames import AlgoType
+    from tpu3dtk_torch.models import elch as elch_mod
+    from tpu3dtk_torch.models import graph_pipeline as gp_mod
+    from tpu3dtk_torch.models import graphslam as gs
+    from tpu3dtk_torch.models import lum_device
+    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.utils.metrics import MATCHING, metrics
+
+    # ---- phase 11: the main path at the h468 size --------------------------
+    scans = fresh_scans(reduced, "cuda")
+    pipe = graph_pipe("cuda")
+    profiled = {}
+    inner = pipe._close_and_relax
+
+    def close_and_relax(*a, **kw):
+        if len(pipe.closures) == 9:  # the tenth closure, under the profiler
+            before = {k: m.total for k, m in metrics.timers.items()}
+            profiled.update(profile_region(lambda: inner(*a, **kw)))
+            profiled["timers"] = {
+                k: m.total - before.get(k, 0.0) for k, m in metrics.timers.items()}
+            profiled["closure"] = pipe.closures[-1]
+        else:
+            inner(*a, **kw)
+
+    pipe._close_and_relax = close_and_relax
+    metrics.reset()
+    nn_cuda.nn_brute_kernel.launches = 0
+    t0 = time.perf_counter()
+    results = pipe.run(scans)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = nn_cuda.nn_brute_kernel.launches
+
+    tim = {k: m.total for k, m in metrics.timers.items()}
+    cnt = {k: int(m.total) for k, m in metrics.counters.items()}
+    seq_iters = sum(r["iterations"] for r in results)
+    loop_iters = cnt.get(elch_mod.ELCH_ICP_ITERATIONS, 0)
+    lum_c, elch_c = pipe._lum_corr_cache, pipe._elch_corr_cache
+    link_calls = cnt.get(gs.LUM_LINK_CALLS, 0)
+    n_closures = len(pipe.closures)
+    tags0 = [t for _m, t in scans[0].frames]
+    final_iters = tags0.count(int(AlgoType.LUM)) - n_closures
+    check(len(results) == H468_SCANS - 1, f"{len(results)} matches, want {H468_SCANS - 1}")
+    check(n_closures >= 10, f"only {n_closures} loop closures on the 1.3-lap ring")
+    check(tags0.count(int(AlgoType.ELCH)) == n_closures, "ELCH frames != closures")
+    check(final_iters >= 1 and link_calls == final_iters * pipe.final_links,
+          f"{link_calls} final-relax link calls for {final_iters} iterations of "
+          f"{pipe.final_links} links")
+    want = seq_iters + loop_iters + lum_c.n_refresh + elch_c.n_refresh + link_calls
+    check(launches == want,
+          f"K1 launches {launches} != sequential ICP iterations {seq_iters} + loop-ICP iterations "
+          f"{loop_iters} + cache refreshes {lum_c.n_refresh} + {elch_c.n_refresh} + final-relax "
+          f"link calls {link_calls} = {want}")
+    mats = np.stack([s.transMat for s in scans])
+    check(bool(np.isfinite(mats).all()), "non-finite poses")
+    ate, ate_o = ate_rmse(mats, true_mats), ate_rmse(odo_mats, true_mats)
+    e = rel_trans_err(mats, true_mats)
+    eo = rel_trans_err(np.stack(odo_mats), true_mats)
+    elch_s = tim.get(gp_mod.ELCH_TIME, 0.0)
+    phase(
+        11, "graph",
+        f"GraphPipeline on {H468_SCANS} scans: wall {wall_s:.2f} s; matching "
+        f"{tim.get(MATCHING, 0.0):.2f} s ({len(results)} matches, {seq_iters} ICP iterations), elch "
+        f"{elch_s:.2f} s (elch_cov {tim.get(elch_mod.ELCH_COV, 0.0):.2f}, elch_balance "
+        f"{tim.get(elch_mod.ELCH_BALANCE, 0.0):.2f}, elch_icp {tim.get(elch_mod.ELCH_ICP, 0.0):.2f}), "
+        f"lum_cov {tim.get(gs.LUM_COV, 0.0):.2f} s, solve {tim.get(gs.LUM_SOLVE, 0.0):.2f} s; "
+        f"{n_closures} closures (first {pipe.closures[0]}, last {pipe.closures[-1]}), "
+        f"{loop_iters} loop-ICP iterations, {pipe.final_links} links in the final graph, "
+        f"{final_iters} final-relax iterations",
+    )
+    phase(
+        11, "graph",
+        f"correspondence caches: LUM n_refresh {lum_c.n_refresh} n_reuse {lum_c.n_reuse} slots "
+        f"{lum_c.L} evicted {lum_c.n_evicted} resident {lum_c.resident_bytes()} bytes; ELCH "
+        f"n_refresh {elch_c.n_refresh} n_reuse {elch_c.n_reuse} slots {elch_c.L} evicted "
+        f"{elch_c.n_evicted} resident {elch_c.resident_bytes()} bytes; resident points "
+        f"{pipe._device_points[0].numel() * 4 + pipe._device_points[1].numel()} bytes "
+        f"({tuple(pipe._device_points[0].shape)})",
+    )
+    phase(
+        11, "graph",
+        f"K1 launches {launches} = {seq_iters} sequential ICP iterations + {loop_iters} loop-ICP "
+        f"iterations + {lum_c.n_refresh} + {elch_c.n_refresh} cache refreshes (LUM, ELCH) + "
+        f"{link_calls} final-relax link calls; per-link model preparations in the final relax: "
+        f"{link_calls} (one a link call, none kept across iterations)",
+    )
+    phase(
+        11, "graph",
+        f"ATE rmse: full pipeline {ate:.2f} cm, sequential only {seq_only[0]:.2f} cm, odometry "
+        f"{ate_o:.2f} cm (gate {GRAPH_ATE_GATE_CM} cm); consecutive relative-pose translation "
+        f"error (cm): full pipeline median {np.median(e):.4f} max {e.max():.4f}, sequential only "
+        f"median {seq_only[1]:.4f}, odometry median {np.median(eo):.4f} max {eo.max():.4f}",
+    )
+    check(ate < ate_o, f"ATE {ate} cm is no better than odometry's {ate_o}")
+    check(ate <= GRAPH_ATE_GATE_CM, f"ATE {ate} cm > {GRAPH_ATE_GATE_CM}")
+    check("api" in profiled, "the tenth closure was not profiled")
+    pt = profiled["timers"]
+    phase(
+        11, "graph",
+        f"closure {profiled['closure']} under torch.profiler (ELCH + the cached 1-iteration LUM "
+        f"step): {profile_text(profiled)}; host spans inside: elch "
+        f"{pt.get(gp_mod.ELCH_TIME, 0.0) * 1e3:.1f} ms (cov {pt.get(elch_mod.ELCH_COV, 0.0) * 1e3:.1f}, "
+        f"balance {pt.get(elch_mod.ELCH_BALANCE, 0.0) * 1e3:.1f}, icp "
+        f"{pt.get(elch_mod.ELCH_ICP, 0.0) * 1e3:.1f}), lum_cov {pt.get(gs.LUM_COV, 0.0) * 1e3:.1f} ms, "
+        f"solve {pt.get(gs.LUM_SOLVE, 0.0) * 1e3:.1f} ms",
+    )
+
+    # one more final-relax iteration at the final poses, profiled
+    pos0 = np.stack([s.rPos for s in scans])
+    theta0 = np.stack([s.rPosTheta for s in scans])
+    links = gs.build_proximity_graph(pos0, 300.0**2, 10)
+
+    def relax_once():
+        lum_device.lum_run(
+            *pipe._device_points, links, np.ones(len(links), bool), pos0, theta0,
+            len(scans), MAX_DIST**2, 0.1, iterations=1)
+
+    relax_once()
+    t0 = time.perf_counter()
+    relax_once()
+    relax_ms = (time.perf_counter() - t0) * 1e3
+    phase(11, "graph", f"one final-relax iteration ({len(links)} links), {relax_ms:.1f} ms "
+          f"unprofiled; under torch.profiler: {profile_text(profile_region(relax_once))}")
+    del pipe, scans
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: torchslam -L 4 -G 1 on a small directory ----------------
+    loc60, true60, odo60 = synth.synth_loop(n_scans=60)
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_dir = os.path.join(tmp, "scans")
+        out_dir = os.path.join(tmp, "frames")
+        os.makedirs(out_dir)
+        idents = synth.write_scan_dir(scan_dir, loc60, odo60)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = slam6d.main([
+                scan_dir, "-f", "uos", "-r", "10", "-O", "1", "-d", str(MAX_DIST), "-i", "50",
+                "--epsICP", "1e-6", "-L", "4", "-G", "1", "-I", "10", "-D", str(MAX_DIST),
+                "--epsSLAM", "0.1", "--cldist", "300", "--loopsize", "10",
+                "--frames-out", out_dir,
+            ])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"torchslam -L 4 -G 1 returned {rc}")
+        frames = [frames_io.read_frames(frames_io.frames_path(out_dir, i)) for i in idents]
+    tags = [list(t) for _m, t in frames]
+    check(all(int(AlgoType.ELCH) in t for t in tags), "a scan has no ELCH frame")
+    check(all(t[-1] == int(AlgoType.LUM) for t in tags), "the last frame of a scan is not LUM-tagged")
+    mats60 = np.stack([m[-1] for m, _t in frames])
+    ate60, ate60_o = ate_rmse(mats60, true60), ate_rmse(odo60, true60)
+    phase(
+        12, "cli graph",
+        f"torchslam -L 4 -G 1 on 60 synth_loop scans: {cli_s:.2f} s, {tags[0].count(int(AlgoType.ELCH))} "
+        f"ELCH and {tags[0].count(int(AlgoType.LUM))} LUM frames a scan; ATE rmse {ate60:.2f} cm, "
+        f"odometry {ate60_o:.2f} cm",
+    )
+    check(ate60 < ate60_o, "torchslam -L 4 -G 1 is no better than odometry")
+
+    # ---- phase 13: the pipeline on the card against the plain path ---------
+    # a third of the h468 corridor's size: 2048 points cover it as densely
+    # as 16384 cover the large one (at the large one's size 2048-point scans
+    # leave ~1 m between points and ICP alone drifts 0.5 cm apart between
+    # the two devices within 31 matches)
+    loc_r, _true_r, odo_r = synth.synth_ring(
+        n_scans=32, n_pts=2048, radius=300.0, half_width=100.0, half_height=150.0, seed=5)
+    base = []
+    for k, (loc, To) in enumerate(zip(loc_r, odo_r)):
+        s = Scan.from_points(loc, f"{k:03d}", To)
+        s.device = "cuda"
+        s.set_reduction(10.0, 1)
+        s.reduced_local()
+        base.append(s)
+    runs = {}
+    for name in ("cuda", "cpu"):
+        ring = fresh_scans(base, name)
+        p = graph_pipe(name)
+        t0 = time.perf_counter()
+        res = p.run(ring)
+        runs[name] = (ring, res, p.closures, time.perf_counter() - t0)
+    (cs, cres, ccl, c_s), (ps, pres, pcl, p_s) = runs["cuda"], runs["cpu"]
+    dt = max(float(np.abs(a.transMat[:3, 3] - b.transMat[:3, 3]).max()) for a, b in zip(cs, ps))
+    dr = max(float(np.abs(a.transMat[:3, :3] - b.transMat[:3, :3]).max()) for a, b in zip(cs, ps))
+    di = max(abs(a["iterations"] - b["iterations"]) for a, b in zip(cres, pres))
+    df = max(abs(len(a.frames) - len(b.frames)) for a, b in zip(cs, ps))
+    phase(
+        13, "plain graph",
+        f"32-scan ring x 2048 pts: cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; closures {ccl} vs "
+        f"{pcl}; max pose diff {dt:.4f} cm / {dr:.2e} rot; max iteration diff {di}; max frame "
+        f"count diff {df}",
+    )
+    check(len(ccl) >= 2, f"only {len(ccl)} closures on the small ring")
+    check(ccl == pcl, "card and plain path close different loops")
+    check(dt <= 0.5 and dr <= 1e-3, "card and plain path poses disagree")
+    return launches
 
 
 def bremen_phases(dev, params_city):
@@ -732,7 +1012,7 @@ def bremen_phases(dev, params_city):
 
     profile_match(
         chained_match, n=10, label="first bremen match (chained)",
-        units=lambda r: chained_match.trips, kernel="K2", names=K2_KERNELS,
+        units=lambda r: chained_match.trips, kernel="K2",
     )
     # the path gives K2 the unclamped table: the line's numbers are that
     # shape's; the clamped table's device time stays beside them
@@ -815,14 +1095,20 @@ def main() -> int:
     md2 = MAX_DIST**2
     params = IcpParams(max_dist_match2=md2, max_iterations=50, epsilon=1e-6)
 
-    # the first match's first NN call as the main path makes it: scans 0
-    # and 1 reduced (-r 10 -O 1) on the card, uploaded padded and masked
-    # by SequenceRegistration._prepare, the model window built by
-    # icp._window, the query placed at scan 1's odometry pose
-    pair = [Scan.from_points(locals_[k], f"{k:03d}", odo_mats[k]) for k in (0, 1)]
-    for s in pair:
+    # every scan reduced (-r 10 -O 1) on the card, as the main path has them
+    t0 = time.perf_counter()
+    reduced = [Scan.from_points(locals_[k], f"{k:03d}", odo_mats[k]) for k in range(H468_SCANS)]
+    for s in reduced:
         s.device = "cuda"
         s.set_reduction(10.0, 1)
+        s.reduced_local()
+    phase(3, "kernels", f"{H468_SCANS} scans reduced on the card in {time.perf_counter() - t0:.1f} s")
+
+    # the first match's first NN call as the main path makes it: scans 0
+    # and 1, uploaded padded and masked by SequenceRegistration._prepare,
+    # the model window built by icp._window, the query placed at scan 1's
+    # odometry pose
+    pair = reduced[:2]
     prep = SequenceRegistration(params=params, device="cuda")._prepare(pair)
     pair_mats = cu(np.stack(odo_mats[:2]).astype(np.float32))
     m_red, mm_red = icp_mod._window(prep["locals"], prep["masks"], pair_mats, 0, 1, 1)
@@ -851,6 +1137,37 @@ def main() -> int:
         f"inner loop ({k1_slots:.2f} slots a pair, {LANE_INSTR_PER_S / k1_slots:.3g} pairs/s) "
         f"{k1_instr:.5f} ms; measured {k1_pairs / k_dev_ms / 1e9:.4g}e12 pairs/s",
     )
+
+    # the ELCH loop ICP's NN call as the main path makes it: windows of 5
+    # and 3 whole scans from ALL resident scans (one cap for the sequence),
+    # the first closure of the second lap: first = 0, so the model window
+    # starts clipped at scan 0 and holds scans 0-2 with scans 3-4 masked
+    # out; the end window (scans 358-360) sits at its true pose, 20 cm off
+    prep_all = SequenceRegistration(params=params, device="cuda")._prepare(reduced)
+    win_mats = np.stack(true_mats).astype(np.float32)
+    win_mats[LAP_SCANS - 2:, 0, 3] += 20.0
+    w_m, w_mm, w_q, w_qm = icp_mod._window_build(
+        prep_all["locals"], prep_all["masks"], cu(win_mats),
+        -2, 2, LAP_SCANS - 2, LAP_SCANS, LAP_SCANS + 1, wm=5, wt=3)
+    live = int(w_mm.reshape(5, -1).any(1).sum())
+    check(live == 3, f"{live} live scans in the model window of first = 0, want 3")
+    phase(3, "kernels", f"ELCH windows of first = 0, last = {LAP_SCANS}: model {w_m.shape[0]} points "
+          f"({int(w_mm.sum())} unmasked, {live} of 5 scans live), target {w_q.shape[0]} points "
+          f"({int(w_qm.sum())} unmasked); resident cap {prep_all['cap']}")
+    err_w, kw_ms, pw_ms, kw_dev_ms, w_idx, _w_d2, w_found = compare_nn(
+        "ELCH loop-closure windows", w_q.contiguous(), w_qm, w_m.contiguous(), w_mm, md2)
+    check(bool(w_mm[w_idx].all()), "ELCH windows: a winner from a masked-out scan")
+    check(int(w_found.sum()) > 1000, "ELCH windows: hardly any pair found")
+    w_pairs = w_q.shape[0] * w_m.shape[0]
+    w_bytes = 13 * w_q.shape[0] + 29 * w_m.shape[0] + 12 + 13 * w_q.shape[0]
+    w_bound, _w_by, w_instr = nn_bound(w_pairs, w_bytes, k1_slots)
+    phase(
+        3, "kernels",
+        f"K1 bound at the window shape: {w_pairs:.4g} pairs x {PAIR_FLOPS} f32 operations over "
+        f"67 TFLOP/s = {w_bound:.5f} ms; at the instruction rate {w_instr:.5f} ms; measured "
+        f"{w_pairs / kw_dev_ms / 1e9:.4g}e12 pairs/s",
+    )
+    del prep_all, w_m, w_mm, w_q, w_qm
 
     model0 = g(odo_mats[0], locals_[0])
     query1 = g(odo_mats[1], locals_[1])
@@ -885,7 +1202,7 @@ def main() -> int:
         check(bool((idx.cpu() == torch.arange(nq)).all()), "boundary: wrong neighbour")
         check(bool((d2 == 100.0).all()), "boundary: d2 != 100 exactly")
         check(bool((found == expect).all()), f"boundary: found != {expect} at {thr}")
-    max_abs_err = max(err_r, err_a, err_b, err_c)
+    max_abs_err = max(err_r, err_a, err_b, err_c, err_w)
 
     # ---- phase 4: the slice through the CLI -------------------------------
     from tpu3dtk_torch.cli import slam6d
@@ -945,12 +1262,13 @@ def main() -> int:
     )
     check(med <= GATE_MEDIAN_CM, f"median relative-pose error {med} cm > {GATE_MEDIAN_CM}")
     check(med < med_o, "registration is no better than odometry")
+    seq_only = (ate_rmse(mats, true_mats), med)
 
     # ---- phase 5: the slice on the card against the plain path ------------
     runs = {}
     for name in ("cuda", "cpu"):
         scans = [
-            Scan.from_points(locals_[k], f"{k:03d}", odo_mats[k]) for k in range(8)
+            Scan.from_points(locals_[k], f"{k:03d}", odo_mats[k]) for k in range(4)
         ]
         for s in scans:
             s.device = name
@@ -964,7 +1282,7 @@ def main() -> int:
     di = max(abs(a["iterations"] - b["iterations"]) for a, b in zip(cres, pres))
     phase(
         5, "plain",
-        f"8 scans: cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; max pose diff "
+        f"4 scans: cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; max pose diff "
         f"{dt:.4f} cm / {dr:.2e} rot; max iteration diff {di}",
     )
     check(dt <= 0.5 and dr <= 1e-3, "card and plain path poses disagree")
@@ -979,6 +1297,9 @@ def main() -> int:
         )
     )
 
+    graph_launches = graph_phases(reduced, true_mats, odo_mats, seq_only)
+    del reduced, locals_
+
     k2 = bremen_phases(dev, IcpParams(
         max_dist_match2=CITY_DIST**2, max_iterations=50, epsilon=1e-4
     ))
@@ -988,7 +1309,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu3dtk_torch/csrc/nn_brute.cu",
         "replaces": "tpu3dtk/ops/nn_pallas.py:732",
-        "launches": launches,
+        "launches": graph_launches,
+        "launches_h468_sequential": launches,
         "launches_bremen": k2["k1_launches"],
         "max_abs_err": max_abs_err,
         "ms": k_ms,
@@ -998,6 +1320,11 @@ def main() -> int:
         "bound_by": k1_by,
         "instr_bound_ms": k1_instr,
         "library_ms": None,
+        "window_ms": kw_ms,
+        "window_plain_ms": pw_ms,
+        "window_device_ms": kw_dev_ms,
+        "window_bound_ms": w_bound,
+        "window_instr_bound_ms": w_instr,
     }, {
         "name": "nn_cell_list",
         "route": "cuda",

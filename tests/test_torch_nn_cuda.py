@@ -122,6 +122,60 @@ def test_kernel_matches_a_reference_that_prepares_nothing(dev, Q, M, masked):
         assert torch.equal(got[2], r_found)
 
 
+@pytest.mark.parametrize("first,last,n_real", [(0, 9, 10), (1, 8, 9), (4, 11, 12)])
+def test_kernel_at_the_loop_closure_window_shape(dev, first, last, n_real):
+    """K1 as the ELCH loop ICP calls it: a model window of 5 whole scans
+    (74240 points) against a target window of 3 (44544 queries) built by
+    ``icp._window_build`` from resident [S, 14848, 3] tensors, with whole
+    scans masked out (first < 2: two of the five; scans >= n_real) and a
+    clipped window start.  Prepared and bare, against the plain version
+    and against a ranking built from the raw model and mask."""
+    from tpu3dtk_torch.models import icp as icp_mod
+
+    S, N = 12, 14848
+    rng = np.random.default_rng(first * 31 + last)
+    base = rng.uniform(-600, 600, (N, 3)).astype(np.float32)
+    locals_all = np.stack([base + rng.normal(0, 2.0, (N, 3)).astype(np.float32) for _ in range(S)])
+    masks_all = rng.uniform(size=(S, N)) >= 0.03
+    mats = np.tile(np.eye(4, dtype=np.float32), (S, 1, 1))
+    mats[:, 0, 3] = 40.0 * np.arange(S)
+    mats[last - 2:, 2, 3] += 15.0  # the end window has drifted
+    model, mmask, tgt, tmask = icp_mod._window_build(
+        *(torch.as_tensor(a, device=dev) for a in (locals_all, masks_all, mats)),
+        first - 2, first + 2, last - 2, last, n_real, wm=5, wt=3)
+    model, tgt = model.contiguous(), tgt.contiguous()
+    assert model.shape == (5 * N, 3) and tgt.shape == (3 * N, 3)
+    live = mmask.reshape(5, N).any(1).sum().item()
+    assert live == min(first + 2, n_real - 1) - max(first - 2, 0) + 1
+    md2 = 2500.0
+    r_idx = torch.empty(3 * N, dtype=torch.int64, device=dev)
+    w = mmask.to(torch.float32)[:, None]
+    c = (model * w).sum(0) / torch.clamp(w.sum(), min=1.0)
+    minf = torch.where(mmask, 0.0, float("inf"))
+    mc = (model - c).T.contiguous()
+    for s0 in range(0, 3 * N, 256):
+        d = [(tgt[s0:s0 + 256, k:k + 1] - c[k]) - mc[k] for k in range(3)]
+        r_idx[s0:s0 + 256] = torch.argmin(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + minf, dim=1)
+    e = tgt - model[r_idx]
+    r_d2 = e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2]
+    r_found = tmask & mmask[r_idx] & (r_d2 < md2)
+    assert 0 < int(r_found.sum()) < int(tmask.sum())
+    bm = tnn.prepare_brute_model(model, mmask)
+    before = nn_cuda.nn_brute_kernel.launches
+    k = tnn.nn_brute_auto(tgt, tmask, bm, None, md2)
+    b = tnn.nn_brute_auto(tgt, tmask, model, mmask, md2)
+    assert nn_cuda.nn_brute_kernel.launches == before + 2
+    p = tnn.nn_brute(tgt, tmask, bm, None, md2)
+    torch.cuda.synchronize()
+    for x, y in zip(k, b):
+        assert torch.equal(x, y)
+    for ref in (p, (r_idx, r_d2, r_found)):
+        assert (k[0] == ref[0]).double().mean().item() >= 0.999
+        assert (k[1] - ref[1]).abs().max().item() <= 1e-2
+        assert torch.equal(k[2], ref[2])
+    assert bool(mmask[k[0]].all())  # no winner from a masked-out scan
+
+
 def test_kernel_refuses_bad_inputs(dev):
     q = torch.zeros((4, 3), device=dev)
     ok = torch.ones(4, dtype=torch.bool, device=dev)

@@ -18,11 +18,17 @@ from tpu3dtk_torch.cli import slam6d
 from tpu3dtk_torch.core import math3d, scan
 from tpu3dtk_torch.io import cache, scandir, writer
 from tpu3dtk_torch.models import graphslam, icp, minimizers, sequence
+from tpu3dtk_torch.models import elch, graph_pipeline, lum_device
 from tpu3dtk_torch.ops import cuda_build, nn, nn_cuda, reduction
 from tpu3dtk_torch.ops import nn_cell_list, nn_cell_list_cuda
 from tpu3dtk_torch.tools import kernel_tuning
 assert callable(icp.icp_pair_chained) and callable(synth.synth_city)
 assert callable(graphslam.do_graph_slam) and callable(nn_cell_list.cell_list_rows)
+assert callable(lum_device.lum_run) and callable(elch.close_loop)
+assert callable(graph_pipeline.GraphPipeline().run) and callable(icp.icp_window_align)
+assert callable(interop.corr_cache_from_numpy) and callable(graphslam.build_clpairs_graph)
+a = slam6d.build_parser().parse_args(["d", "-L", "4", "-G", "1", "--cldist", "300", "--loopsize", "10"])
+assert (a.loop6DAlgo, a.graphSlam6DAlgo, a.cldist, a.loopsize) == (4, 1, 300.0, 10)
 a = slam6d.build_parser().parse_args(["d", "-n", "g.net", "-I", "5", "-D", "150"])
 assert a.net == "g.net" and a.iterSLAM == 5 and a.distSLAM == 150.0
 p = slam6d.build_parser()
@@ -68,6 +74,19 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
         nn_cell_list.nn_cell_list(pts, np.ones(4, bool), pts, np.ones(4, bool), 1.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         graphslam._do_graph_slam_host([], np.zeros((1, 2), np.int32), graphslam.LumParams())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graphslam._do_graph_slam_device([], np.zeros((1, 2), np.int32), graphslam.LumParams())
+    from tpu3dtk_torch.models import elch, lum_device
+    from tpu3dtk_torch.models.graph_pipeline import GraphPipeline
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphPipeline().run([None])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lum_device.CorrCache(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        elch._edge_covariances_euler([], [], elch.ElchParams())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graphslam.build_clpairs_graph([], 1.0, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         slam6d.main([str(tmp_path)])
     assert SequenceRegistration(device="cpu")._device() == torch.device("cpu")

@@ -184,8 +184,8 @@ def test_frames_text_identical_for_equal_matrices(tmp_path):
 @pytest.mark.parametrize(
     "flag,item",
     [
-        (["-L", "4"], "A8"), (["-G", "1"], "A7"), (["-C", "10"], "A7"),
-        (["-C", "0"], "A7"), (["--distributed"], "slice E"),
+        (["-L", "1"], "slice C"), (["-G", "3"], "slice C"), (["-L", "3"], "slice C"),
+        (["-G", "4"], "slice C"), (["--distributed"], "slice E"),
         (["--cache-mb", "64"], "slice C"), (["--plane"], "A12"),
         (["--normalShoot"], "A12"), (["--saveOct"], "slice D"),
         (["--loadOct"], "slice D"), (["-a", "3"], "A11"),

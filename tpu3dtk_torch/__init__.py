@@ -11,11 +11,13 @@ kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
 - ``io``     scan directories, formats, .frames, prefetch cache
 - ``ops``    voxel reduction, brute NN and cell-list NN (each a plain
   torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``)
-- ``models`` minimizers, ICP (while-style loop and the chained cell-list
-  engine), sequential registration, LUM graph relaxation (host path)
+- ``models`` minimizers, ICP (while-style loop, the chained cell-list
+  engine, loop-closure windows), sequential registration, LUM graph
+  relaxation (on the device and the host path), the correspondence
+  cache, ELCH loop closing, the GraphPipeline
 - ``utils``  named-phase metrics
-- ``cli``    torchslam (the slam6D-style command; sequential ICP and the
-  ``-n`` net-graph LUM)
+- ``cli``    torchslam (the slam6D-style command; sequential ICP, ``-n`` /
+  ``-C`` graph LUM, ``-L 4 -G 1`` GraphPipeline)
 
 This package imports neither ``jax`` nor ``tpu3dtk``.
 """

@@ -2,9 +2,10 @@
 reference ``slam6D`` driver's flags (src/slam6d/slam6D.cc:158-367), on
 PyTorch and CUDA.
 
-Ported: sequential ICP registration (the default path) and, with
--n/--net, LUM over an explicit pose graph after it (the bremen_city
-workflow), with
+Ported: sequential ICP registration (the default path); with -n/--net
+or -C/--clpairs, LUM over an explicit or a shared-pairs pose graph after
+it (the bremen_city workflow); with -L 4 and/or -G 1 the full
+GraphPipeline (loop detection, ELCH slerp closure, LUM), with
   -s/--start -e/--end --scans  scan range
   -f/--format          scan format (uos, uosr, xyz, ...; text formats)
   -m/--max -M/--min -u range and custom point filters (cm)
@@ -17,12 +18,16 @@ workflow), with
   -a/--algo            minimizer 1=quat 2=svd
   --metascan           match against union of previous scans
   -n/--net             explicit .net pose graph: LUM over its links
+  -C/--clpairs         LUM over the graph of scan pairs sharing >= N pairs
+  -L/--loop6DAlgo 4    ELCH slerp loop closing (GraphPipeline)
+  -G/--graphSlam6DAlgo 1  LUM (lum6DEuler) in the GraphPipeline
+  --cldist --loopsize  loop detection distance (cm) and minimum loop length
   -I/--iterSLAM -D/--distSLAM --epsSLAM  LUM iterations, distance, epsilon
   --frames-out --continue --prefetch --exportAllPoints -q
   --device             cuda[:N] | cpu (default: the first card; without a
                        card the run stops unless --device cpu is given)
 
-The flags of paths not ported yet (-L, -G, -C, --distributed,
+The flags of paths not ported yet (-L 1..3, -G 2..4, --distributed,
 --cache-mb, --plane, --normalShoot, --saveOct, --loadOct, -a 3..10)
 stop with an error naming their ROADMAP item.
 """
@@ -40,9 +45,10 @@ ALGO_NAMES = {1: "quat", 2: "svd"}
 
 # flag -> (is it set?, ROADMAP item that ports its path)
 _NOT_PORTED = (
-    ("-L/--loop6DAlgo", lambda a: a.loop6DAlgo > 0, "A8/A9 (ELCH, GraphPipeline)"),
-    ("-G/--graphSlam6DAlgo", lambda a: a.graphSlam6DAlgo > 0, "A7/A9 (LUM, GraphPipeline)"),
-    ("-C/--clpairs", lambda a: a.clpairs > -1, "A7 (graphslam clpairs graph)"),
+    ("-L/--loop6DAlgo 1..3", lambda a: a.loop6DAlgo in (1, 2, 3),
+     "slice C (ELCH variants 1-3); -L 4 (slerp) is ported"),
+    ("-G/--graphSlam6DAlgo 2..4", lambda a: a.graphSlam6DAlgo > 1,
+     "slice C (graphslam_variants); -G 1 (lum6DEuler) is ported"),
     ("--distributed", lambda a: a.distributed, "slice E (multi-device)"),
     ("--cache-mb", lambda a: a.cache_mb > 0, "slice C (models/streaming)"),
     ("--plane", lambda a: a.point_to_plane, "A12 (normals-based pairing)"),
@@ -225,29 +231,59 @@ def main(argv=None) -> int:
         except ValueError:
             pass  # not the main thread
 
+    def sequential():
+        return SequenceRegistration(
+            params=params, metascan=args.metascan, device=device
+        ).run(scans)
+
+    def lum_params():
+        from ..models import graphslam as gs
+
+        return gs.LumParams(
+            max_dist_match2=(
+                args.distSLAM**2 if args.distSLAM > 0 else args.dist**2
+            ),
+            iterations=args.iterSLAM,
+            epsilon=args.epsSLAM,
+            device=device,
+        )
+
     t0 = time.perf_counter()
     with metrics.time(MATCHING):
-        reg = SequenceRegistration(
-            params=params, metascan=args.metascan, device=device
-        )
-        results = reg.run(scans)
         if args.net:
             # explicit .net graph: sequential ICP, then LUM over the
             # given links (bremen_city workflow)
             from ..models import graphslam as gs
 
-            links = gs.read_net_graph(args.net)
-            gs.do_graph_slam(
-                scans, links,
-                gs.LumParams(
-                    max_dist_match2=(
-                        args.distSLAM**2 if args.distSLAM > 0 else args.dist**2
-                    ),
-                    iterations=args.iterSLAM,
-                    epsilon=args.epsSLAM,
-                    device=device,
-                ),
+            results = sequential()
+            gs.do_graph_slam(scans, gs.read_net_graph(args.net), lum_params())
+        elif args.clpairs > -1:
+            # ref slam6D.cc:767-779: sequential ICP, then LUM over the
+            # shared-pairs graph
+            from ..models import graphslam as gs
+
+            results = sequential()
+            links = gs.build_clpairs_graph(
+                scans, args.dist**2, args.clpairs, device=device
             )
+            if len(links):
+                gs.do_graph_slam(scans, links, lum_params())
+        elif args.graphSlam6DAlgo > 0 or args.loop6DAlgo > 0:
+            from ..models.graph_pipeline import GraphPipeline
+
+            results = GraphPipeline(
+                icp_params=params,
+                metascan=args.metascan,
+                lum_max_dist2=args.distSLAM**2 if args.distSLAM > 0 else args.dist**2,
+                lum_iterations=args.iterSLAM,
+                lum_epsilon=args.epsSLAM,
+                elch=args.loop6DAlgo == 4,
+                cldist=args.cldist,
+                loopsize=args.loopsize,
+                device=device,
+            ).run(scans)
+        else:
+            results = sequential()
     dt = (time.perf_counter() - t0) * 1000.0
     if not args.quiet:
         for r in results:

@@ -1,5 +1,5 @@
-"""Carry scan and cell-list state across from the JAX package as plain
-numpy.
+"""Carry scan, cell-list, correspondence-cache and parameter state
+across from the JAX package as plain numpy.
 
 :func:`scans_from_numpy` builds the port's :class:`~.core.scan.Scan`
 objects from what a ``tpu3dtk`` ``TPUScan`` holds — identifier, raw xyz,
@@ -15,6 +15,14 @@ With ``cell_list`` it also carries the chained NN engine's state: a
 ``tpu3dtk.ops.nn_pallas.CellListModel`` and a ``cell_list_spec`` dict,
 their fields given as numpy arrays, become the port's
 :class:`~.ops.nn_cell_list.CellListModel` and spec.
+
+:func:`corr_cache_from_numpy` rebuilds a ``lum_device.CorrCache`` (slot
+table, relative poses, the resident idx/found rows) so both packages can
+start from one cache state; :func:`lum_params_from`,
+:func:`elch_params_from` and :func:`graph_pipeline_from` map the JAX
+dataclasses' fields (given as a dict, e.g. ``vars(p)``) onto the port's,
+dropping the fields that only exist for XLA (shape buckets, hashed
+grids, meshes, the segmented loop) and refusing unknown ones.
 """
 
 from __future__ import annotations
@@ -29,7 +37,75 @@ from .core.scan import Scan
 from .models.icp import IcpParams
 from .ops.nn_cell_list import CellListModel
 
-__all__ = ["scans_from_numpy"]
+__all__ = [
+    "corr_cache_from_numpy", "elch_params_from", "graph_pipeline_from",
+    "lum_params_from", "scans_from_numpy",
+]
+
+# fields of the JAX dataclasses with no counterpart in the port
+_LUM_DROPPED = (
+    "pad_multiple", "link_chunk", "nns", "grid_min_points", "grid_max_cap",
+    "dense_solver_max_scans", "mesh", "scan_cap", "point_cap", "link_cap_min",
+    "grid", "device_points", "corr_cache",
+)
+_ELCH_DROPPED = ("pad_multiple", "scan_cap", "link_cap_min", "device_points", "corr_cache")
+_PIPE_DROPPED = ("seq_mesh", "lum_mesh", "device_segments")
+
+
+def _carried(fields: Mapping, dropped) -> dict:
+    return {k: v for k, v in fields.items() if k not in dropped and not k.startswith("_")}
+
+
+def lum_params_from(fields: Mapping, device="cpu"):
+    """The port's ``LumParams`` from a JAX ``LumParams``' fields.  The
+    resident tensors and the cache do not cross as fields: upload the
+    points anew and use :func:`corr_cache_from_numpy`."""
+    from .models.graphslam import LumParams
+
+    return LumParams(device=device, **_carried(fields, _LUM_DROPPED))
+
+
+def elch_params_from(fields: Mapping, device="cpu"):
+    from .models.elch import ElchParams
+
+    return ElchParams(device=device, **_carried(fields, _ELCH_DROPPED))
+
+
+def graph_pipeline_from(fields: Mapping, device="cpu"):
+    """The port's ``GraphPipeline`` from a JAX ``GraphPipeline``'s
+    fields (``icp_params`` as the JAX ``IcpParams``' ``_asdict()``)."""
+    from .models.graph_pipeline import GraphPipeline
+
+    kw = _carried(fields, _PIPE_DROPPED)
+    if "icp_params" in kw:
+        icp = kw["icp_params"]
+        kw["icp_params"] = IcpParams(**dict(icp._asdict() if hasattr(icp, "_asdict") else icp))
+    return GraphPipeline(device=device, **kw)
+
+
+def corr_cache_from_numpy(state: Mapping, device="cpu"):
+    """A ``lum_device.CorrCache`` in the state of a JAX one.  ``state``:
+    ``N``, ``tol_t``, ``tol_r``, ``slot_cap_min``, ``slots`` (link ->
+    slot), ``L``, ``n_refresh``, ``n_reuse`` and, once L > 0, ``idx``
+    [L,N] int32, ``found`` [L,N] bool, ``rel`` [L,4,4] f64 as numpy."""
+    import heapq
+
+    from .models.lum_device import CorrCache
+
+    c = CorrCache(
+        int(state["N"]), tol_t=state["tol_t"], tol_r=state["tol_r"],
+        slot_cap_min=state["slot_cap_min"], device=device,
+    )
+    c.slots = {tuple(int(v) for v in k): int(sl) for k, sl in state["slots"].items()}
+    c.L = int(state["L"])
+    c.n_refresh, c.n_reuse = int(state["n_refresh"]), int(state["n_reuse"])
+    if c.L:
+        c.idx = torch.as_tensor(np.array(state["idx"], np.int32), device=device)
+        c.found = torch.as_tensor(np.array(state["found"], bool), device=device)
+        c.rel = np.array(state["rel"], np.float64)
+    c._free = sorted(set(range(c.L)) - set(c.slots.values()))
+    heapq.heapify(c._free)
+    return c
 
 
 def _cell_list_from_numpy(state: Mapping, device) -> tuple[CellListModel, dict]:

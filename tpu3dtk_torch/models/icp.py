@@ -41,7 +41,7 @@ from . import minimizers as mz
 
 __all__ = [
     "IcpParams", "IcpResult", "icp_pair", "icp_pair_chained", "icp_pair_seq",
-    "register_sequence_device",
+    "icp_window_align", "register_sequence_device",
 ]
 
 # metrics counter: loop trips of the chained engine (one cell-list NN
@@ -153,10 +153,14 @@ def icp_pair(
     return IcpResult(T=T, error=ret, iterations=it, n_pairs=npairs)
 
 
-def _window(locals_all, masks_all, mats, lo: int, hi: int, window_cap: int):
-    """Model window of the sequence-resident match: scans [lo, hi) of
-    the ``window_cap``-scan slice starting at clip(lo, 0, S - W),
-    transformed by their current poses ([W*N, 3], [W*N])."""
+def _window(locals_all, masks_all, mats, lo: int, hi: int, window_cap: int,
+            n_real: int | None = None):
+    """Window of whole scans from the sequence-resident tensors: scans
+    [lo, hi) (and below ``n_real``, where given) of the
+    ``window_cap``-scan slice starting at clip(lo, 0, S - W),
+    transformed by their current poses ([W*N, 3], [W*N]); the other
+    scans of the slice are masked out.  Serves the metascan model of the
+    sequential matches and the loop-closure windows."""
     S, N = masks_all.shape
     W = min(window_cap, S) if window_cap else S
     s0 = min(max(lo, 0), S - W)
@@ -166,6 +170,7 @@ def _window(locals_all, masks_all, mats, lo: int, hi: int, window_cap: int):
         torch.einsum("sij,snj->sni", win_mats[:, :3, :3], win_locals)
         + win_mats[:, None, :3, 3]
     )
+    hi = hi if n_real is None else min(hi, n_real)
     sid = torch.arange(s0, s0 + W, device=masks_all.device)
     active = (sid >= lo) & (sid < hi)
     mmask = (masks_all[s0 : s0 + W] & active[:, None]).reshape(W * N)
@@ -191,6 +196,46 @@ def icp_pair_seq(
         max_dist_match2=max_dist_match2, epsilon=epsilon,
         max_iterations=max_iterations, minimizer=minimizer,
         subsample=subsample, seed=seed, pairing=pairing,
+    )
+
+
+def _window_build(
+    locals_all, masks_all, mats, m_lo: int, m_hi: int, t_lo: int, t_hi: int,
+    n_real: int, *, wm: int, wt: int,
+):
+    """ELCH loop-closure windows from the RESIDENT sequence tensors:
+    model = scans [m_lo, m_hi] and target = scans [t_lo, t_hi]
+    (inclusive, clipped to [0, n_real)), both in the global frame, as
+    windows of ``wm`` / ``wt`` whole scans (5 and 3 in the reference,
+    elch6Dslerp.cc:93-110) with the scans outside the range masked out."""
+    model, mmask = _window(locals_all, masks_all, mats, m_lo, m_hi + 1, wm, n_real)
+    tgt, tmask = _window(locals_all, masks_all, mats, t_lo, t_hi + 1, wt, n_real)
+    return model, mmask, tgt, tmask
+
+
+def icp_window_align(
+    locals_all, masks_all, mats, first: int, last: int, n_real: int,
+    max_dist_match2, epsilon,
+    *,
+    max_iterations: int = 50,
+    minimizer: str = "quat",
+    wm: int = 5,
+    wt: int = 3,
+) -> IcpResult:
+    """ELCH loop-closure match: metascan(first±2) as model vs
+    metascan(last-2..last) as target, both already in global frames, so
+    T0 = identity and the result ``T`` is the loop-closing ``align``
+    (elch6D*.cc my_icp6D->match(start, end))."""
+    model, mmask, tgt, tmask = _window_build(
+        locals_all, masks_all, mats,
+        first - (wm - 1) // 2, first + (wm - 1) // 2, last - (wt - 1), last,
+        n_real, wm=wm, wt=wt,
+    )
+    return icp_pair(
+        model.contiguous(), mmask, tgt.contiguous(), tmask,
+        torch.eye(4, dtype=torch.float32, device=model.device),
+        max_dist_match2=max_dist_match2, epsilon=epsilon,
+        max_iterations=max_iterations, minimizer=minimizer,
     )
 
 
