@@ -33,21 +33,47 @@ exit code and no result line):
 6. profile — the first h468 match (scan 1 against scan 0) once more under
    torch.profiler: kernel launches and device time per ICP iteration, the
    device's busy share, K1's share of the device time.
-11. graph  — the main path: ``GraphPipeline`` (sequential ICP, loop
-   detection, ELCH slerp closure, cached 1-iteration LUM per closure,
-   final LUM relax) on all 468 h468 scans with bench.py's parameters;
-   prints wall, the phase split, closures, links, cache counts and
-   resident bytes; K1's launch count must equal sequential ICP
+11. graph  — the earlier main path: ``GraphPipeline`` (sequential ICP,
+   loop detection, ELCH slerp closure, cached 1-iteration LUM per
+   closure, final LUM relax) on all 468 h468 scans with bench.py's
+   parameters; prints wall, the phase split, closures, links, cache
+   counts and resident bytes; K1's launch count must equal sequential ICP
    iterations + loop-ICP iterations + cache refreshes + final-relax link
    calls; ATE rmse must be below odometry's and <= 21 cm.  The tenth
    closure runs under torch.profiler, and so does one more final-relax
    iteration after the run.
+15. block-CG — one relaxation step's system at phase 11's final graph and
+   poses (1223 links on 468 scans), solved on the card densely and by
+   the device block-CG (within 1e-6 relative; iterations, both times),
+   then on the host densely and by the host block-CG of the -n regime;
+   the same link blocks chained into a 1869-scan graph, densely and by
+   block-CG on the card, and how many scans the dense solve fits.
 12. cli graph — ``torchslam -L 4 -G 1`` on a 60-scan synth_loop
    directory: exit 0, ELCH- and LUM-tagged frames, ATE below odometry's.
+16. variants — ``torchslam -L 1 -G 3`` and ``-L 3 -G 4`` on the same
+   directory (exit 0, ELCH and LUM frames, finite poses, ATE below
+   odometry's, beside phase 12's); one ``-G 2`` relaxation of its
+   sequential ICP result on the card and on the CPU: the same poses.
 13. plain graph — the same GraphPipeline on a 32-scan ring of 2048-point
    scans (a corridor a third of the h468 one's size, so the clouds are as
    dense as there) on the card and on the CPU (the plain path): same
    closures, at least two, and the same poses.
+14. quat graph — the slice's main path: ``GraphPipeline`` with
+   quaternion ELCH (-L 2) and quaternion LUM (-G 2) on all 468 h468 scans
+   with phase 11's parameters; wall and phase split, closures, links,
+   final-relax iterations; K1's launch count must equal sequential ICP
+   iterations + loop-ICP iterations + raw-sum link calls (ELCH edges +
+   LUM links); ATE below odometry's, printed beside phase 11's.
+17. icp matrix — ``torchslam`` on the first 24 h468 scans with phase 4's
+   flags for each minimizer -a 3..10 and for --plane / --normalShoot:
+   K1 launches = ICP iterations (none for --normalShoot, whose pairs come
+   from the plain normal-shooting search), median relative-pose error
+   below odometry's, normal-estimation time per scan.  -a 4 and
+   --normalShoot, which leave the truth in the JAX package too, are
+   gated instead on scans 0-4 at 5 iterations a match against the JAX
+   package's median there (within 10% and 15%), and -a 4's first three
+   iterations on scans 0-1 on the card against the CPU plain path
+   (0.05 cm / 1e-4).
 7. kernels B — K2 (the cell-list kernel) against its plain version at the
    bremen path's shape (scans 0 and 1 of the 13 x 1M-point city sequence
    reduced on the card, the first match's first NN call), on the table
@@ -428,17 +454,16 @@ def graph_pipe(device, **kw):
 
 
 def graph_phases(reduced, true_mats, odo_mats, seq_only):
-    """Phases 11-13: the GraphPipeline main path.  ``reduced``: all h468
-    scans, reduced on the card; ``seq_only``: (ATE, median relative-pose
-    error) of phase 4's sequential-only run.  Returns K1's launch count on
-    the main path."""
+    """Phases 11, 15, 12, 16 and 13: the GraphPipeline main path, the
+    block-CG solve of its final system, and the CLI graph paths.
+    ``reduced``: all h468 scans, reduced on the card; ``seq_only``: (ATE,
+    median relative-pose error) of phase 4's sequential-only run.
+    Returns K1's launch count on the main path and phase 11's ATE."""
     import numpy as np
     import torch
 
     from tpu3dtk_torch import synth
-    from tpu3dtk_torch.cli import slam6d
     from tpu3dtk_torch.core.scan import Scan
-    from tpu3dtk_torch.io import frames as frames_io
     from tpu3dtk_torch.io.frames import AlgoType
     from tpu3dtk_torch.models import elch as elch_mod
     from tpu3dtk_torch.models import graph_pipeline as gp_mod
@@ -562,41 +587,38 @@ def graph_phases(reduced, true_mats, odo_mats, seq_only):
     relax_ms = (time.perf_counter() - t0) * 1e3
     phase(11, "graph", f"one final-relax iteration ({len(links)} links), {relax_ms:.1f} ms "
           f"unprofiled; under torch.profiler: {profile_text(profile_region(relax_once))}")
+    block_cg_phase(pipe._device_points, links, pos0, theta0, len(scans))
     del pipe, scans
     torch.cuda.empty_cache()
 
     # ---- phase 12: torchslam -L 4 -G 1 on a small directory ----------------
     loc60, true60, odo60 = synth.synth_loop(n_scans=60)
+    ate60_o = ate_rmse(odo60, true60)
     with tempfile.TemporaryDirectory() as tmp:
         scan_dir = os.path.join(tmp, "scans")
-        out_dir = os.path.join(tmp, "frames")
-        os.makedirs(out_dir)
         idents = synth.write_scan_dir(scan_dir, loc60, odo60)
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = slam6d.main([
-                scan_dir, "-f", "uos", "-r", "10", "-O", "1", "-d", str(MAX_DIST), "-i", "50",
-                "--epsICP", "1e-6", "-L", "4", "-G", "1", "-I", "10", "-D", str(MAX_DIST),
-                "--epsSLAM", "0.1", "--cldist", "300", "--loopsize", "10",
-                "--frames-out", out_dir,
-            ])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        check(rc == 0, f"torchslam -L 4 -G 1 returned {rc}")
-        frames = [frames_io.read_frames(frames_io.frames_path(out_dir, i)) for i in idents]
-    tags = [list(t) for _m, t in frames]
-    check(all(int(AlgoType.ELCH) in t for t in tags), "a scan has no ELCH frame")
-    check(all(t[-1] == int(AlgoType.LUM) for t in tags), "the last frame of a scan is not LUM-tagged")
-    mats60 = np.stack([m[-1] for m, _t in frames])
-    ate60, ate60_o = ate_rmse(mats60, true60), ate_rmse(odo60, true60)
-    phase(
-        12, "cli graph",
-        f"torchslam -L 4 -G 1 on 60 synth_loop scans: {cli_s:.2f} s, {tags[0].count(int(AlgoType.ELCH))} "
-        f"ELCH and {tags[0].count(int(AlgoType.LUM))} LUM frames a scan; ATE rmse {ate60:.2f} cm, "
-        f"odometry {ate60_o:.2f} cm",
-    )
-    check(ate60 < ate60_o, "torchslam -L 4 -G 1 is no better than odometry")
+        cli_s, tags, mats60 = cli_graph(scan_dir, os.path.join(tmp, "frames"), idents, 4, 1)
+        ate60 = ate_rmse(mats60, true60)
+        phase(
+            12, "cli graph",
+            f"torchslam -L 4 -G 1 on 60 synth_loop scans: {cli_s:.2f} s, "
+            f"{tags[0].count(int(AlgoType.ELCH))} ELCH and {tags[0].count(int(AlgoType.LUM))} LUM "
+            f"frames a scan; ATE rmse {ate60:.2f} cm, odometry {ate60_o:.2f} cm",
+        )
+        check(ate60 < ate60_o, "torchslam -L 4 -G 1 is no better than odometry")
+        # ---- phase 16: the other closure and relaxation variants ---------
+        for L, G in ((1, 3), (3, 4)):
+            v_s, v_tags, v_mats = cli_graph(scan_dir, os.path.join(tmp, f"frames_L{L}G{G}"), idents, L, G)
+            v_ate = ate_rmse(v_mats, true60)
+            phase(
+                16, "variants",
+                f"torchslam -L {L} -G {G} on the same 60 scans: {v_s:.2f} s, "
+                f"{v_tags[0].count(int(AlgoType.ELCH))} ELCH and {v_tags[0].count(int(AlgoType.LUM))} "
+                f"LUM frames a scan; ATE rmse {v_ate:.2f} cm (odometry {ate60_o:.2f}, -L 4 -G 1 "
+                f"{ate60:.2f})",
+            )
+            check(v_ate < ate60_o, f"torchslam -L {L} -G {G} is no better than odometry")
+    quat_relax_card_vs_cpu(loc60, odo60)
 
     # ---- phase 13: the pipeline on the card against the plain path ---------
     # a third of the h468 corridor's size: 2048 points cover it as densely
@@ -633,7 +655,400 @@ def graph_phases(reduced, true_mats, odo_mats, seq_only):
     check(len(ccl) >= 2, f"only {len(ccl)} closures on the small ring")
     check(ccl == pcl, "card and plain path close different loops")
     check(dt <= 0.5 and dr <= 1e-3, "card and plain path poses disagree")
+    return launches, ate
+
+
+def cli_graph(scan_dir, out_dir, idents, L, G):
+    """``torchslam -L L -G G`` with phase 12's flags: (seconds, each scan's
+    frame tags, the final poses); exit 0, an ELCH frame in every scan and
+    a LUM frame last, finite poses."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io.frames import AlgoType
+
+    os.makedirs(out_dir)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = slam6d.main([
+            scan_dir, "-f", "uos", "-r", "10", "-O", "1", "-d", str(MAX_DIST), "-i", "50",
+            "--epsICP", "1e-6", "-L", str(L), "-G", str(G), "-I", "10", "-D", str(MAX_DIST),
+            "--epsSLAM", "0.1", "--cldist", "300", "--loopsize", "10",
+            "--frames-out", out_dir,
+        ])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"torchslam -L {L} -G {G} returned {rc}")
+    frames = [frames_io.read_frames(frames_io.frames_path(out_dir, i)) for i in idents]
+    tags = [list(t) for _m, t in frames]
+    check(all(int(AlgoType.ELCH) in t for t in tags), f"-L {L} -G {G}: a scan has no ELCH frame")
+    check(all(t[-1] == int(AlgoType.LUM) for t in tags),
+          f"-L {L} -G {G}: the last frame of a scan is not LUM-tagged")
+    mats = np.stack([m[-1] for m, _t in frames])
+    check(bool(np.isfinite(mats).all()), f"-L {L} -G {G}: non-finite poses")
+    return cli_s, tags, mats
+
+
+def quat_relax_card_vs_cpu(loc60, odo60):
+    """Phase 16, second part: one -G 2 relaxation of the 60-scan
+    directory's sequential ICP result, on the card and on the CPU (the
+    plain path) from the same start poses."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.models import graphslam as gs
+    from tpu3dtk_torch.models import graphslam_variants as gsv
+    from tpu3dtk_torch.models.icp import IcpParams
+    from tpu3dtk_torch.models.sequence import SequenceRegistration
+
+    base = []
+    for k, (loc, To) in enumerate(zip(loc60, odo60)):
+        s = Scan.from_points(loc, f"{k:03d}", To)
+        s.device = "cuda"
+        s.set_reduction(10.0, 1)
+        s.reduced_local()
+        base.append(s)
+    SequenceRegistration(
+        params=IcpParams(max_dist_match2=MAX_DIST**2, max_iterations=50, epsilon=1e-6),
+        device="cuda").run(base)
+    links = gs.build_proximity_graph(np.stack([s.rPos for s in base]), 300.0**2, 10)
+    runs = {}
+    for name in ("cuda", "cpu"):
+        scans = fresh_scans(base, name)
+        for s, s0 in zip(scans, base):
+            s.transMat = s0.transMat.copy()
+        t0 = time.perf_counter()
+        ret = gsv.do_graph_slam_quat(scans, links, gs.LumParams(
+            max_dist_match2=MAX_DIST**2, iterations=10, epsilon=0.1, device=name))
+        if name == "cuda":
+            torch.cuda.synchronize()
+        runs[name] = (scans, ret, time.perf_counter() - t0)
+    (cs, cret, c_s), (ps, pret, p_s) = runs["cuda"], runs["cpu"]
+    dt = max(float(np.abs(a.transMat[:3, 3] - b.transMat[:3, 3]).max()) for a, b in zip(cs, ps))
+    dr = max(float(np.abs(a.transMat[:3, :3] - b.transMat[:3, :3]).max()) for a, b in zip(cs, ps))
+    n_it = [len(s.frames) for s in (cs[0], ps[0])]
+    phase(
+        16, "variants",
+        f"-G 2 relax of the 60 scans' ICP result ({len(links)} links): cuda {c_s:.2f} s vs cpu "
+        f"plain {p_s:.2f} s; iterations {n_it[0]} vs {n_it[1]}, final shift {cret:.4f} vs "
+        f"{pret:.4f} cm; max pose diff {dt:.4f} cm / {dr:.2e} rot",
+    )
+    check(all(np.isfinite(s.transMat).all() for s in cs), "-G 2 relax: non-finite poses")
+    check(dt <= 0.5 and dr <= 1e-3, "-G 2 relax: card and plain path poses disagree")
+
+
+def block_cg_phase(device_points, links, pos0, theta0, n_scans):
+    """Phase 15: one relaxation step's system at phase 11's final graph
+    and poses, solved on the card densely and by the device block-CG,
+    then on the host densely and by the host block-CG (the -n regime's
+    solvers); then the same link blocks chained four times over (a graph
+    of 4 x 467 + 1 scans), densely and by block-CG on the card: where the
+    dense solve stops being the faster one."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.models import graphslam as gs
+    from tpu3dtk_torch.models import lum_device
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    locals_t, masks_t = device_points
+    S = int(locals_t.shape[0])
+    dev = locals_t.device
+    pos = torch.as_tensor(pos0, dtype=torch.float64, device=dev)
+    theta = torch.as_tensor(theta0, dtype=torch.float64, device=dev)
+    points_g = gs.global_points(locals_t, math3d.euler_to_matrix4(pos, theta))
+    C, CD, _m = gs.link_covariances(points_g, masks_t, links, MAX_DIST**2)
+    links = np.asarray(links, np.int64)
+
+    def timed(fn, reps=3):
+        out, best = None, float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return out, best * 1e3
+
+    def dense_vs_cg(lk, C_, CD_, slots, n_real, reps):
+        lm = np.ones(len(lk), bool)
+        X_d, dense_ms = timed(lambda: lum_device._solve_dense(lk, lm, C_, CD_, slots, n_real), reps)
+        metrics.reset()
+        X_c, cg_ms = timed(lambda: lum_device._solve_cg(lk, lm, C_, CD_, slots - 1), reps)
+        iters = int(metrics.counters[lum_device.LUM_CG_ITERATIONS].total) // reps
+        scale = float(X_d.abs().max())
+        return X_d, dense_ms, cg_ms, iters, float((X_c - X_d).abs().max()) / scale, scale
+
+    X_d, dense_ms, cg_ms, cg_iters, rel, scale = dense_vs_cg(links, C, CD, S, n_scans, 3)
+    C_h, CD_h = C.double().cpu().numpy(), CD.double().cpu().numpy()
+    X_hd, host_dense_ms = timed(lambda: gs._solve_GX_B(n_scans, links, C_h, CD_h, n_scans), reps=1)
+    X_h, host_ms = timed(lambda: gs._solve_GX_B(n_scans, links, C_h, CD_h, 1), reps=1)
+    rel_h = float(np.abs(X_h - X_d.cpu().numpy()).max()) / scale
+    rel_hd = float(np.abs(X_hd - X_d.cpu().numpy()).max()) / scale
+    phase(
+        15, "block-CG",
+        f"phase 11's final system ({len(links)} links, {n_scans} scans, {6 * (n_scans - 1)} "
+        f"unknowns): dense f64 on the card {dense_ms:.1f} ms; device block-CG {cg_ms:.1f} ms, "
+        f"{cg_iters} iterations, max |X_cg - X_dense| / max |X_dense| = {rel:.3e}; host dense "
+        f"(numpy f64) {host_dense_ms:.1f} ms, relative difference {rel_hd:.3e}; host block-CG "
+        f"(torch f64 on the CPU) {host_ms:.1f} ms, relative difference {rel_h:.3e}",
+    )
+    check(rel <= 1e-6, f"device block-CG and dense solve differ by {rel} relative")
+    check(rel_h <= 1e-6, f"host block-CG and dense solve differ by {rel_h} relative")
+    check(rel_hd <= 1e-6, f"host and device dense solves differ by {rel_hd} relative")
+
+    # the same blocks, chained: copy j's scan 0 is copy j-1's last scan
+    step, k = n_scans - 1, 4
+    big = np.concatenate([links + j * step for j in range(k)])
+    n_big = k * step + 1
+    free_b, total_b = torch.cuda.mem_get_info(dev)
+    n_fit = int((free_b // 2 / (lum_device.DENSE_BUFFERS * 36 * 8)) ** 0.5)
+    _X, dense_ms4, cg_ms4, cg_iters4, rel4, _sc = dense_vs_cg(
+        big, C.repeat(k, 1, 1), CD.repeat(k, 1), n_big, n_big, 1)
+    phase(
+        15, "block-CG",
+        f"chained x{k} ({len(big)} links, {n_big} scans, {6 * (n_big - 1)} unknowns): dense f64 on "
+        f"the card {dense_ms4:.1f} ms, device block-CG {cg_ms4:.1f} ms ({cg_iters4} iterations), "
+        f"relative difference {rel4:.3e}; the dense solve fits up to {n_fit} scans now "
+        f"({free_b / 2**30:.1f} of {total_b / 2**30:.1f} GiB free)",
+    )
+    check(rel4 <= 1e-6, f"chained system: block-CG and dense solve differ by {rel4} relative")
+
+
+def quat_graph_phase(reduced, true_mats, odo_mats, ate11):
+    """Phase 14, the slice's main path: GraphPipeline with quaternion ELCH
+    (-L 2) and quaternion LUM (-G 2) on all h468 scans with phase 11's
+    parameters.  Returns K1's launch count."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.io.frames import AlgoType
+    from tpu3dtk_torch.models import elch as elch_mod
+    from tpu3dtk_torch.models import graph_pipeline as gp_mod
+    from tpu3dtk_torch.models import graphslam as gs
+    from tpu3dtk_torch.models import graphslam_variants as gsv
+    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.utils.metrics import MATCHING, metrics
+
+    scans = fresh_scans(reduced, "cuda")
+    pipe = graph_pipe("cuda", elch_algo=2, slam_algo=2)
+    edge_links = [0]  # raw-sum link calls of the ELCH edge covariances
+    quat_cov = elch_mod._edge_covariances_quat
+
+    def counting_cov(scans_, edges, params):
+        edge_links[0] += len(edges)
+        return quat_cov(scans_, edges, params)
+
+    elch_mod._edge_covariances_quat = counting_cov
+    try:
+        metrics.reset()
+        nn_cuda.nn_brute_kernel.launches = 0
+        t0 = time.perf_counter()
+        results = pipe.run(scans)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = nn_cuda.nn_brute_kernel.launches
+    finally:
+        elch_mod._edge_covariances_quat = quat_cov
+    tim = {k: m.total for k, m in metrics.timers.items()}
+    cnt = {k: int(m.total) for k, m in metrics.counters.items()}
+    seq_iters = sum(r["iterations"] for r in results)
+    loop_iters = cnt.get(elch_mod.ELCH_ICP_ITERATIONS, 0)
+    raw_calls = cnt.get(gsv.RAW_LINK_CALLS, 0)
+    n_closures = len(pipe.closures)
+    tags0 = [t for _m, t in scans[0].frames]
+    final_iters = tags0.count(int(AlgoType.LUM)) - n_closures
+    check(len(results) == H468_SCANS - 1, f"{len(results)} matches, want {H468_SCANS - 1}")
+    check(n_closures >= 10, f"only {n_closures} loop closures on the 1.3-lap ring")
+    check(tags0.count(int(AlgoType.ELCH)) == n_closures, "ELCH frames != closures")
+    check(pipe._lum_corr_cache.n_refresh == 0 and pipe._elch_corr_cache.n_refresh == 0,
+          "the quaternion variants used a correspondence cache")
+    check(final_iters >= 1, "no final-relax iteration")
+    want = seq_iters + loop_iters + raw_calls
+    check(launches == want,
+          f"K1 launches {launches} != sequential ICP iterations {seq_iters} + loop-ICP iterations "
+          f"{loop_iters} + raw-sum link calls {raw_calls} = {want}")
+    mats = np.stack([s.transMat for s in scans])
+    check(bool(np.isfinite(mats).all()), "non-finite poses")
+    ate, ate_o = ate_rmse(mats, true_mats), ate_rmse(odo_mats, true_mats)
+    e = rel_trans_err(mats, true_mats)
+    phase(
+        14, "quat graph",
+        f"GraphPipeline -L 2 -G 2 on {H468_SCANS} scans: wall {wall_s:.2f} s; matching "
+        f"{tim.get(MATCHING, 0.0):.2f} s ({len(results)} matches, {seq_iters} ICP iterations), elch "
+        f"{tim.get(gp_mod.ELCH_TIME, 0.0):.2f} s (elch_cov {tim.get(elch_mod.ELCH_COV, 0.0):.2f}, "
+        f"elch_balance {tim.get(elch_mod.ELCH_BALANCE, 0.0):.2f}, elch_icp "
+        f"{tim.get(elch_mod.ELCH_ICP, 0.0):.2f}), lum_cov {tim.get(gs.LUM_COV, 0.0):.2f} s, "
+        f"lum_solve {tim.get(gs.LUM_SOLVE, 0.0):.2f} s; {n_closures} closures (first "
+        f"{pipe.closures[0]}, last {pipe.closures[-1]}), {pipe.final_links} links in the final "
+        f"graph, {final_iters} final-relax iterations",
+    )
+    phase(
+        14, "quat graph",
+        f"K1 launches {launches} = {seq_iters} sequential ICP iterations + {loop_iters} loop-ICP "
+        f"iterations + {raw_calls} raw-sum link calls ({edge_links[0]} ELCH edges + "
+        f"{raw_calls - edge_links[0]} LUM links, closure and final relaxations)",
+    )
+    phase(
+        14, "quat graph",
+        f"ATE rmse: -L 2 -G 2 {ate:.2f} cm, -L 4 -G 1 (phase 11) {ate11:.2f} cm, odometry "
+        f"{ate_o:.2f} cm; consecutive relative-pose translation error median {np.median(e):.4f} "
+        f"cm, max {e.max():.4f} cm",
+    )
+    check(ate < ate_o, f"ATE {ate} cm is no better than odometry's {ate_o}")
     return launches
+
+
+# phase 17: torchslam's ICP algorithm matrix, as (label, flags)
+ICP_MATRIX = tuple((f"-a {a}", ["-a", str(a)]) for a in range(3, 11)) + (
+    ("--plane", ["-a", "1", "--plane"]), ("--normalShoot", ["-a", "1", "--normalShoot"]),
+)
+MATRIX_SCANS = 24
+# -a 4 (dual quaternions) and --normalShoot leave the truth on these scans
+# in the JAX package too, and at phase 4's 50 iterations a match they do so
+# chaotically: on h468 scans 0-4 the median relative-pose error of -a 4 is
+# 294.20 cm in the JAX package and 418.02 in the port, both on the CPU; of
+# --normalShoot 113.27 and 113.95 (scripts/reference_minimizers_h468.py
+# [--port] 5 dual normalShoot).  At 5 iterations a match the two packages still
+# agree to a few percent: -a 4 307.28 (JAX) and 306.01 cm (port, CPU),
+# 0.4% apart, and 298.88 on an H100 (NVIDIA H100 80GB HBM3, 700.00 W), 2.7%
+# apart (the card adds the dual minimizer's uncentred f32 sums in another
+# order); --normalShoot 35.32 and 36.58 (CPU), 3.6%
+# apart, its metric tying at f32 resolution with partners anywhere along
+# the ray (the same script with -i 5).  So these two are gated on scans 0-4
+# at 5 iterations, on the JAX package's median there, within the relative
+# bound beside it: about four times the largest reading apart.
+REFERENCE_ITERS = 5
+REFERENCE_5 = {"-a 4": (307.2833, 0.10), "--normalShoot": (35.3182, 0.15)}
+
+
+def dual_pair_card_vs_cpu(locals_, odo_mats):
+    """-a 4's first three ICP iterations on h468 scans 0 and 1, on the
+    card (K1) and on the CPU (the plain path, which
+    tests/test_torch_icp.py holds to the JAX package on the same pair):
+    the same poses within 0.05 cm / 1e-4."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.models import icp as icp_mod
+
+    red = []
+    for k in range(2):
+        s = Scan.from_points(locals_[k], f"{k:03d}", odo_mats[k])
+        s.device = "cpu"
+        s.set_reduction(10.0, 1)
+        red.append(s.reduced_local().astype(np.float32))
+    T = np.asarray(odo_mats[0], np.float32)
+    model = (red[0] @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+        t0 = time.perf_counter()
+        r = icp_mod.icp_pair(
+            t(model), t(np.ones(len(model), bool)), t(red[1]), t(np.ones(len(red[1]), bool)),
+            t(np.asarray(odo_mats[1], np.float32)), max_dist_match2=MAX_DIST**2, epsilon=1e-9,
+            max_iterations=3, minimizer="dual",
+        )
+        out[dev] = (r.T.cpu().numpy(), r.iterations, time.perf_counter() - t0)
+    (cT, ci, c_s), (pT, pi, p_s) = out["cuda"], out["cpu"]
+    dt = float(np.abs(cT[:3, 3] - pT[:3, 3]).max())
+    dr = float(np.abs(cT[:3, :3] - pT[:3, :3]).max())
+    phase(17, "icp matrix", f"-a 4 on scans 0-1, 3 iterations ({len(red[1])} x {len(model)} points): "
+          f"cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; max pose diff {dt:.4f} cm / {dr:.2e} rot")
+    check(ci == pi == 3, f"-a 4 pair: iterations {ci} vs {pi}")
+    check(dt <= 0.05 and dr <= 1e-4, "-a 4 pair: card and plain path poses disagree")
+
+
+def icp_matrix_phase(locals_, true_mats, odo_mats):
+    """Phase 17: ``torchslam`` on the first 24 h468 scans with phase 4's
+    flags for each minimizer -a 3..10 and for --plane / --normalShoot;
+    -a 4 and --normalShoot also on scans 0-4, gated on the JAX package's
+    figures there.  Returns K1's launches per configuration."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.core.scan import NORMALS_TIME
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    n = MATRIX_SCANS
+    truth = np.stack(true_mats[:n])
+    eo = rel_trans_err(np.stack(odo_mats[:n]), truth)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_dir = os.path.join(tmp, "scans")
+        idents = synth.write_scan_dir(scan_dir, locals_[:n], odo_mats[:n])
+
+        def run(label, flags, last, iters=50):
+            """torchslam on scans 0..last with ``iters`` iterations a
+            match: (errors, wall s, K1 launches, ICP iterations, normals
+            text); checks exit 0, one match a scan, K1 launches = ICP
+            iterations and finite poses."""
+            out_dir = os.path.join(tmp, f"{label.strip('-').replace(' ', '')}_{last}_{iters}")
+            os.makedirs(out_dir)
+            metrics.reset()
+            nn_cuda.nn_brute_kernel.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = slam6d.main([
+                    scan_dir, "-f", "uos", "-r", "10", "-O", "1", "-d", str(MAX_DIST), "-i",
+                    str(iters), "--epsICP", "1e-6", "-e", str(last), *flags, "--frames-out", out_dir,
+                ])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = nn_cuda.nn_brute_kernel.launches
+            check(rc == 0, f"torchslam {label} returned {rc}")
+            iters = [int(v) for v in re.findall(r"^scan \d+: ITER (\d+)", buf.getvalue(), re.M)]
+            check(len(iters) == last, f"{label}: {len(iters)} matches, want {last}")
+            want = 0 if label == "--normalShoot" else sum(iters)
+            check(launches == want, f"{label}: K1 launches {launches} != {want}")
+            mats = np.stack([frames_io.final_pose(frames_io.frames_path(out_dir, i))
+                             for i in idents[: last + 1]])
+            check(bool(np.isfinite(mats).all()), f"{label}: non-finite poses")
+            e = rel_trans_err(mats, truth[: last + 1])
+            nt = metrics.timers.get(NORMALS_TIME)
+            normals = (f", normals {nt.total / nt.count * 1e3:.1f} ms a scan ({nt.count} scans)"
+                       if nt is not None and nt.count else "")
+            return e, wall_s, launches, sum(iters), normals
+
+        for label, flags in ICP_MATRIX:
+            e, wall_s, launches, iters, normals = run(label, flags, n - 1)
+            phase(
+                17, "icp matrix",
+                f"torchslam {label} on {n} scans: {wall_s:.2f} s, {iters} ICP iterations, "
+                f"K1 launches {launches}{normals}; relative-pose error median {np.median(e):.4f} "
+                f"cm, max {e.max():.4f} (odometry median {np.median(eo):.4f}, max {eo.max():.4f})",
+            )
+            if label not in REFERENCE_5:
+                check(float(np.median(e)) < float(np.median(eo)), f"{label}: no better than odometry")
+            out[label] = launches
+        for label, (ref, bound) in REFERENCE_5.items():
+            e, wall_s, launches, iters, _normals = run(
+                label, dict(ICP_MATRIX)[label], 4, REFERENCE_ITERS)
+            med = float(np.median(e))
+            phase(
+                17, "icp matrix",
+                f"torchslam {label} -i {REFERENCE_ITERS} on scans 0-4: {wall_s:.2f} s, {iters} ICP "
+                f"iterations, K1 launches {launches}; relative-pose error median {med:.4f} cm, the "
+                f"JAX package's {ref:.4f} cm (CPU), relative difference {abs(med - ref) / ref:.4f} "
+                f"(bound {bound}; odometry median {np.median(eo[:4]):.4f})",
+            )
+            check(abs(med - ref) <= bound * ref,
+                  f"{label} -i {REFERENCE_ITERS} on scans 0-4: median {med} cm, the JAX package's {ref}")
+    dual_pair_card_vs_cpu(locals_, odo_mats)
+    return out
 
 
 def bremen_phases(dev, params_city):
@@ -1297,7 +1712,9 @@ def main() -> int:
         )
     )
 
-    graph_launches = graph_phases(reduced, true_mats, odo_mats, seq_only)
+    graph_launches, ate11 = graph_phases(reduced, true_mats, odo_mats, seq_only)
+    quat_launches = quat_graph_phase(reduced, true_mats, odo_mats, ate11)
+    matrix_launches = icp_matrix_phase(locals_, true_mats, odo_mats)
     del reduced, locals_
 
     k2 = bremen_phases(dev, IcpParams(
@@ -1311,6 +1728,8 @@ def main() -> int:
         "replaces": "tpu3dtk/ops/nn_pallas.py:732",
         "launches": graph_launches,
         "launches_h468_sequential": launches,
+        "launches_h468_quat": quat_launches,
+        "launches_icp_matrix": matrix_launches,
         "launches_bremen": k2["k1_launches"],
         "max_abs_err": max_abs_err,
         "ms": k_ms,

@@ -13,6 +13,17 @@ Bounds:
 - ``close_loop``: poses within 0.05 cm / 1e-4, ELCH frame tags equal;
   the ``device_points`` branch within 1e-3 of the legacy branch (the JAX
   package's own bound); drift shrinks and scan 0 stays.
+- ``_quat_mult``, ``_nlerp``: f64 host code, 1e-12.
+- ``_edge_covariances_quat``: the port sums the raw moments in f64, the
+  JAX package in f32, where Σddᵀ = Paa − Pab − Pabᵀ + Pbb cancels: on
+  noise-free scans the JAX residual variance drowns in rounding and most
+  of its edges get zero blocks.  So the quaternion tests run on scans
+  with 2 cm sensor noise around a centred room: there the JAX blocks are
+  within 5e-2 by norm of the port's, and the JAX formulas applied to the
+  port's f64 raw sums give the port's blocks within 1e-9.
+- ``close_loop_euler`` / ``_quat`` / ``_unitquat`` (-L 1..3): poses
+  within 0.05 cm / 1e-4, frame tags equal, on the legacy and the
+  resident branch (the quaternion variants on the noisy scans).
 """
 
 import jax.numpy as jnp
@@ -107,7 +118,14 @@ def test_host_helpers_equal_jax(rng):
     C[3] = 0.0  # singular: the identity's weights
     np.testing.assert_allclose(
         telch._inv_diag_weights(C, 6), jelch._inv_diag_weights(C, 6), rtol=1e-12)
-    assert telch.ELCH_VARIANTS == {4: telch.close_loop}
+    assert telch.ELCH_VARIANTS == {
+        1: telch.close_loop_euler, 2: telch.close_loop_quat, 3: telch.close_loop_unitquat,
+        4: telch.close_loop}
+    for _ in range(5):
+        a, b = rng.normal(size=4), rng.normal(size=4)
+        t = float(rng.uniform())
+        np.testing.assert_allclose(telch._quat_mult(a, b), jelch._quat_mult(a, b), atol=1e-12)
+        np.testing.assert_allclose(telch._nlerp(a, b, t), jelch._nlerp(a, b, t), atol=1e-12)
     assert set(vars(telch.ElchParams())) == {
         "max_dist_match2", "icp_iterations", "icp_epsilon", "device_points", "corr_cache",
         "device"}
@@ -115,9 +133,11 @@ def test_host_helpers_equal_jax(rng):
     assert (p.max_dist_match2, p.icp_iterations, p.icp_epsilon, p.device) == (900.0, 7, 1e-7, "cpu")
 
 
-def loop_scans(rng, n=8, drift_per_step=2.0):
-    """tests/test_elch.py:35-54: a ring whose odometry has drifted."""
-    world = make_room_cloud(rng, n=3000, size=800.0)
+def loop_scans(rng, n=8, drift_per_step=2.0, noise=0.0, shift=0.0, n_pts=3000):
+    """tests/test_elch.py:35-54: a ring whose odometry has drifted.
+    ``noise`` (cm): independent sensor noise per scan; ``shift``: the
+    room moved by -shift on every axis (centred on the ring)."""
+    world = make_room_cloud(rng, n=n_pts, size=800.0) - shift
     scans, true_poses = [], []
     drift = np.zeros(3)
     for k in range(n):
@@ -126,6 +146,8 @@ def loop_scans(rng, n=8, drift_per_step=2.0):
         T_true = np.asarray(jmath.euler_to_matrix4(pos, np.zeros(3)))
         true_poses.append(T_true)
         local = np.asarray(jmath.transform3(jmath.m4inv(T_true), world))
+        if noise:
+            local = local + rng.normal(0, noise, local.shape)
         if k > 0:
             drift = drift + np.array([drift_per_step, 0.0, drift_per_step * 0.5])
         s = TPUScan.from_points(local, f"{k:03d}", pose=np.asarray(
@@ -278,3 +300,63 @@ def test_close_loop_device_points_matches_legacy(rng):
         device_points=(_t(locals_pad), _t(masks))))
     for sa, sb in zip(a, b):
         np.testing.assert_allclose(sa.transMat, sb.transMat, atol=1e-3)
+
+
+def test_edge_covariances_quat_match_jax(rng):
+    from tpu3dtk.models import graphslam_variants as jgv
+    from tpu3dtk_torch.models import graphslam as tgs
+    from tpu3dtk_torch.models import graphslam_variants as tgv
+
+    jscans, _ = loop_scans(rng, noise=2.0, shift=400.0, n_pts=1200)
+    tscans = carry(jscans)
+    edges = [(i, i + 1) for i in range(7)] + [(0, 7)]
+    raw = {k: v.numpy() for k, v in tgv._collect_raw(
+        tscans, np.asarray(edges), tgs.LumParams(device="cpu")).items()}
+    exact = np.stack([jgv._quat_link_CCD(raw, li)[0] for li in range(8)])
+    locals_pad, masks, _m = resident(jscans, 9)
+    for jp, tp in (
+        (jelch.ElchParams(), telch.ElchParams(device="cpu")),
+        (jelch.ElchParams(device_points=(jnp.asarray(locals_pad), jnp.asarray(masks))),
+         telch.ElchParams(device_points=(_t(locals_pad), _t(masks)))),
+    ):
+        jC = jelch._edge_covariances_quat(jscans, edges, jp)
+        tC = telch._edge_covariances_quat(tscans, edges, tp)
+        assert tC.shape == (8, 7, 7) and tC.dtype == np.float64
+        for k in range(8):
+            assert np.linalg.norm(jC[k]) > 0
+            assert np.linalg.norm(tC[k] - jC[k]) <= 5e-2 * np.linalg.norm(jC[k])
+            assert np.linalg.norm(tC[k] - exact[k]) <= 1e-9 * np.linalg.norm(exact[k])
+
+
+@pytest.mark.parametrize("algo,branch", [
+    (1, "legacy"), (1, "device_points"), (2, "device_points"), (3, "legacy"),
+])
+def test_close_loop_variants_match_jax(rng, algo, branch):
+    jscans, true_poses = loop_scans(
+        rng, n_pts=1200, **({} if algo == 1 else dict(noise=2.0, shift=400.0)))
+    tscans = carry(jscans)
+    n = len(jscans)
+    edges = [(i, i + 1) for i in range(n - 1)]
+    kw = dict(max_dist_match2=2500.0, icp_iterations=80)
+    jp, tp = jelch.ElchParams(**kw), interop.elch_params_from(vars(jelch.ElchParams(**kw)))
+    if branch == "device_points":
+        locals_pad, masks, _m = resident(jscans, n + 2)
+        jp.device_points = (jnp.asarray(locals_pad), jnp.asarray(masks))
+        tp.device_points = (_t(locals_pad), _t(masks))
+
+    def drift(scans):
+        return np.mean([np.linalg.norm(s.transMat[:3, 3] - T[:3, 3])
+                        for s, T in zip(scans, true_poses)])
+
+    before = drift(tscans)
+    metrics.reset()
+    jelch.ELCH_VARIANTS[algo](jscans, 0, n - 1, edges, jp)
+    telch.ELCH_VARIANTS[algo](tscans, 0, n - 1, edges, tp)
+    assert drift(tscans) < before
+    np.testing.assert_allclose(tscans[0].transMat, true_poses[0], atol=1e-9)
+    for name in (telch.ELCH_COV, telch.ELCH_BALANCE, telch.ELCH_ICP):
+        assert metrics.timers[name].count == 1
+    for t, j in zip(tscans, jscans):
+        np.testing.assert_allclose(t.transMat[:3, 3], j.transMat[:3, 3], atol=0.05)
+        np.testing.assert_allclose(t.transMat[:3, :3], j.transMat[:3, :3], atol=1e-4)
+        assert [f[1] for f in t.frames] == [f[1] for f in j.frames] == [int(AlgoType.ELCH)]

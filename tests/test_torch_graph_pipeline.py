@@ -14,7 +14,9 @@ Bounds:
 - ``build_proximity_graph`` / ``build_clpairs_graph``: equal link sets;
 - ``torchslam -L 4 -G 1 --device cpu`` against ``tpuslam -L 4 -G 1``:
   equal AlgoType tags up to 3 LUM frames, poses within 0.5 cm / 1e-3;
-  ``-L 2`` and ``-G 2`` exit 2 naming slice C.
+  ``-L 5`` and ``-G 5`` exit 2;
+- the variants (``slam_algo`` 2..4 with ``elch_algo`` 1..3): the same
+  closures, poses within 0.5 cm / 1e-3 of the JAX pipeline, equal tags.
 """
 
 import os
@@ -220,10 +222,31 @@ def test_runs_without_closure():
 
 
 def test_unported_variants_are_refused():
-    for kw, item in ((dict(elch=True, elch_algo=2), "slice C"), (dict(slam_algo=2), "slice C")):
-        with pytest.raises(NotImplementedError, match=item):
+    """Every -L 1..4 / -G 1..4 is ported; what lies outside raises."""
+    for kw, item in ((dict(elch=True, elch_algo=5), "-L 5"), (dict(slam_algo=5), "-G 5")):
+        with pytest.raises(ValueError, match=item):
             GraphPipeline(device="cpu", **kw).run([])
-    assert GraphPipeline(device="cpu").run([]) == []
+    for algo in (1, 2, 3, 4):
+        assert GraphPipeline(device="cpu", elch=True, elch_algo=algo, slam_algo=algo).run([]) == []
+
+
+@pytest.mark.parametrize("slam_algo,elch_algo", [(2, 2), (3, 1), (4, 3)])
+def test_variant_pipelines_match_jax(circuit, slam_algo, elch_algo):
+    """The JAX pipeline's _do_graph_slam and ELCH_VARIANTS dispatch, with
+    the cached 1-iteration closure relax (which the variants ignore)."""
+    jscans = [_copy(s) for s in circuit]
+    tscans = carry(circuit)
+    jp = jax_pipe(closure_lum_iterations=1, slam_algo=slam_algo, elch_algo=elch_algo)
+    tp = torch_pipe(jp)
+    assert (tp.slam_algo, tp.elch_algo) == (slam_algo, elch_algo)
+    jp.run(jscans)
+    tp.run(tscans)
+    assert len(jp.closures) >= 1 and tp.closures == jp.closures
+    assert_poses_close(tscans, jscans, 0.5, 1e-3)
+    for t, j in zip(tscans, jscans):
+        assert [f[1] for f in t.frames] == [f[1] for f in j.frames]
+    assert tp._elch_corr_cache.n_refresh == jp._elch_corr_cache.n_refresh
+    assert tp._lum_corr_cache.n_refresh == 0  # the variants never read it
 
 
 def test_graph_constructors_match_jax(circuit):
@@ -287,15 +310,16 @@ def test_cli_matches_jax_cli(tmp_path, mode):
         assert int(AlgoType.ELCH) in kinds
 
 
-@pytest.mark.parametrize("flag", [["-L", "2"], ["-G", "2"]])
+@pytest.mark.parametrize("flag", [["-L", "5"], ["-G", "5"]])
 def test_cli_refuses_unported_variants(flag, capsys, tmp_path):
+    """-L and -G take 0..4; anything else exits 2 before a scan is read."""
     from tpu3dtk_torch.cli import slam6d as tcli
 
     with pytest.raises(SystemExit) as e:
         tcli.main([str(tmp_path), *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and "slice C" in err
+    assert f"{flag[0]}" in err and "0..4" in err
 
 
 @pytest.mark.slow

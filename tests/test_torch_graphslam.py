@@ -6,7 +6,8 @@ Bounds:
 - ``lum_pair_stats``: f32 sums in another order than XLA's: C, CD within
   1e-4 relative (of the largest entry), m equal.
 - ``assemble_GB``, ``lum_pose_corrections``, ``read_net_graph``: f64 host
-  numpy, the same formulas: 1e-12.
+  numpy, the same formulas: 1e-12; ``_solve_GX_B`` above its dense
+  limit (block-CG): 1e-8 relative.
 - ``link_covariances_chained``: the port ranks exactly, the JAX chain
   with its split ranking (a handful of near-equidistant pairs may swap,
   tests/test_graphslam.py:247-254): pair counts equal, C and CD within
@@ -76,8 +77,11 @@ def test_assemble_and_corrections_match_jax(rng):
         tgs._solve_GX_B(4, links, C, CD, 65), jgs._solve_GX_B(4, links, C, CD, 65),
         atol=1e-12,
     )
-    with pytest.raises(NotImplementedError, match="pgsolve"):
-        tgs._solve_GX_B(70, links, C, CD, 65)
+    # above dense_max the host path takes block-CG, as the JAX one does
+    np.testing.assert_allclose(
+        tgs._solve_GX_B(70, links, C, CD, 65), jgs._solve_GX_B(70, links, C, CD, 65),
+        rtol=0, atol=1e-8 * np.abs(jgs._solve_GX_B(70, links, C, CD, 65)).max(),
+    )
     pos = rng.uniform(-500, 500, (3, 3))
     theta = rng.uniform(-1, 1, (3, 3))
     X = rng.normal(size=(3, 6))

@@ -218,10 +218,30 @@ def test_do_graph_slam_device_path_matches_jax(rng):
         assert {f[1] for f in t.frames} == {int(AlgoType.LUM)}
 
 
-def test_do_graph_slam_refuses_graphs_beyond_the_dense_solve(rng):
-    tscans = carried_scans(ring_scans(rng))
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tgs.do_graph_slam(tscans, LINKS, tgs.LumParams(device="cpu", device_max_scans=4))
+def test_do_graph_slam_refuses_graphs_beyond_the_dense_solve(rng, monkeypatch):
+    """Where the dense system would not fit in memory the on-device
+    relaxation no longer refuses: it solves by the device block-CG, to
+    the dense solve's poses (1e-6 cm / 1e-9)."""
+    jscans = ring_scans(rng)
+    a, b = carried_scans(jscans), carried_scans(jscans)
+    kw = dict(device="cpu", max_dist_match2=MD2, iterations=3, epsilon=1e-3)
+    metrics.reset()
+    tgs.do_graph_slam(a, LINKS, tgs.LumParams(**kw))
+    assert tld.LUM_CG_ITERATIONS not in metrics.counters
+    monkeypatch.setattr(tld, "_dense_fits", lambda n, device: False)
+    tgs.do_graph_slam(b, LINKS, tgs.LumParams(**kw))
+    assert metrics.counters[tld.LUM_CG_ITERATIONS].total > 0
+    for sa, sb in zip(a, b):
+        np.testing.assert_allclose(sb.transMat[:3, 3], sa.transMat[:3, 3], atol=1e-6)
+        np.testing.assert_allclose(sb.transMat[:3, :3], sa.transMat[:3, :3], atol=1e-9)
+        assert len(sa.frames) == len(sb.frames)
+
+
+def test_dense_fits_counts_five_buffers():
+    """The dense solve's memory rule: five (6n)² f64 buffers within half
+    of what the host has free; a graph of a million scans never fits."""
+    assert tld._dense_fits(16, "cpu")
+    assert not tld._dense_fits(1_000_000, "cpu")
 
 
 def cache_state(c):

@@ -19,7 +19,8 @@ from tpu3dtk_torch.core import math3d, scan
 from tpu3dtk_torch.io import cache, scandir, writer
 from tpu3dtk_torch.models import graphslam, icp, minimizers, sequence
 from tpu3dtk_torch.models import elch, graph_pipeline, lum_device
-from tpu3dtk_torch.ops import cuda_build, nn, nn_cuda, reduction
+from tpu3dtk_torch.models import graphslam_variants, pgsolve
+from tpu3dtk_torch.ops import cuda_build, knn, nn, nn_cuda, normals, reduction
 from tpu3dtk_torch.ops import nn_cell_list, nn_cell_list_cuda
 from tpu3dtk_torch.tools import kernel_tuning
 assert callable(icp.icp_pair_chained) and callable(synth.synth_city)
@@ -27,6 +28,11 @@ assert callable(graphslam.do_graph_slam) and callable(nn_cell_list.cell_list_row
 assert callable(lum_device.lum_run) and callable(elch.close_loop)
 assert callable(graph_pipeline.GraphPipeline().run) and callable(icp.icp_window_align)
 assert callable(interop.corr_cache_from_numpy) and callable(graphslam.build_clpairs_graph)
+assert set(graphslam_variants.GRAPHSLAM_VARIANTS) == {2, 3, 4} and set(elch.ELCH_VARIANTS) == {1, 2, 3, 4}
+assert callable(pgsolve.solve_block_cg) and callable(normals.estimate_normals_knn)
+assert callable(knn.knn_brute) and len(minimizers.MINIMIZERS) == 10
+a = slam6d.build_parser().parse_args(["d", "-L", "2", "-G", "3", "-a", "10", "--plane", "--normalShoot"])
+assert (a.loop6DAlgo, a.graphSlam6DAlgo, a.algo, a.point_to_plane, a.normal_shoot) == (2, 3, 10, True, True)
 a = slam6d.build_parser().parse_args(["d", "-L", "4", "-G", "1", "--cldist", "300", "--loopsize", "10"])
 assert (a.loop6DAlgo, a.graphSlam6DAlgo, a.cldist, a.loopsize) == (4, 1, 300.0, 10)
 a = slam6d.build_parser().parse_args(["d", "-n", "g.net", "-I", "5", "-D", "150"])
@@ -89,4 +95,16 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
         graphslam.build_clpairs_graph([], 1.0, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         slam6d.main([str(tmp_path)])
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.models import graphslam_variants, pgsolve
+    from tpu3dtk_torch.ops import normals
+
+    two = [Scan.from_points(pts, f"{k:03d}") for k in range(2)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graphslam_variants.do_graph_slam_quat(two, np.array([[0, 1]]), graphslam.LumParams())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        normals.estimate_normals_knn(pts, np.ones(4, bool), np.zeros(3, np.float32))
+    C = np.tile(np.eye(6), (1, 1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pgsolve.solve_block_cg(np.array([[0, 1]]), C, np.ones((1, 6)), 1)
     assert SequenceRegistration(device="cpu")._device() == torch.device("cpu")

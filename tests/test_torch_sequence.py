@@ -184,11 +184,11 @@ def test_frames_text_identical_for_equal_matrices(tmp_path):
 @pytest.mark.parametrize(
     "flag,item",
     [
-        (["-L", "1"], "slice C"), (["-G", "3"], "slice C"), (["-L", "3"], "slice C"),
-        (["-G", "4"], "slice C"), (["--distributed"], "slice E"),
-        (["--cache-mb", "64"], "slice C"), (["--plane"], "A12"),
-        (["--normalShoot"], "A12"), (["--saveOct"], "slice D"),
-        (["--loadOct"], "slice D"), (["-a", "3"], "A11"),
+        (["-L", "6"], "0..4"), (["-G", "-1"], "0..4"), (["-L", "-2"], "0..4"),
+        (["-G", "7"], "0..4"), (["--distributed"], "slice E"),
+        (["--cache-mb", "64"], "slice C"), (["-a", "0"], "1..10"),
+        (["-a", "11"], "1..10"), (["--saveOct"], "slice D"),
+        (["--loadOct"], "slice D"), (["-a", "-3"], "1..10"),
     ],
 )
 def test_cli_refuses_unported_flags(flag, item, capsys, tmp_path):
@@ -198,4 +198,6 @@ def test_cli_refuses_unported_flags(flag, item, capsys, tmp_path):
         tcli.main([str(tmp_path), *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "not ported" in err and item in err
+    # an unported path names its ROADMAP item; a value slam6D does not
+    # define names the range it does
+    assert ("not ported" in err or "not a slam6D choice" in err) and item in err

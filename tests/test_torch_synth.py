@@ -32,6 +32,17 @@ def test_synth_equals_make_golden(name, kw):
             np.testing.assert_array_equal(a, b)
 
 
+def test_synth_ring_renders_a_prefix():
+    """``n_render`` makes the ring's first scans only: the same arrays as
+    the whole ring's first scans."""
+    full = synth.synth_ring(n_scans=6, n_pts=400, seed=11)
+    part = synth.synth_ring(n_scans=6, n_pts=400, seed=11, n_render=2)
+    for g, w in zip(part, full):
+        assert len(g) == 2
+        for a, b in zip(g, w[:2]):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_write_scan_dir_roundtrip(tmp_path):
     from tpu3dtk_torch.core.scan import Scan
     from tpu3dtk_torch.io.scandir import read_scan_dir

@@ -4,8 +4,8 @@ PyTorch and CUDA.
 
 Ported: sequential ICP registration (the default path); with -n/--net
 or -C/--clpairs, LUM over an explicit or a shared-pairs pose graph after
-it (the bremen_city workflow); with -L 4 and/or -G 1 the full
-GraphPipeline (loop detection, ELCH slerp closure, LUM), with
+it (the bremen_city workflow); with -L 1..4 and/or -G 1..4 the full
+GraphPipeline (loop detection, ELCH closure, GraphSLAM relaxation), with
   -s/--start -e/--end --scans  scan range
   -f/--format          scan format (uos, uosr, xyz, ...; text formats)
   -m/--max -M/--min -u range and custom point filters (cm)
@@ -15,21 +15,27 @@ GraphPipeline (loop detection, ELCH slerp closure, LUM), with
   -d/--dist            ICP max match distance (cm)
   -i/--iter            max ICP iterations
   --epsICP             ICP convergence epsilon
-  -a/--algo            minimizer 1=quat 2=svd
+  -a/--algo            minimizer 1 quat, 2 svd, 3 ortho, 4 dual, 5 helix,
+                       6 apx, 7 lumeuler, 8 lumquat, 9 quatscale, 10 napx
+  --plane              point-to-plane pairing (target normals)
+  --normalShoot        normal-shooting pairing (along the target normals)
   --metascan           match against union of previous scans
   -n/--net             explicit .net pose graph: LUM over its links
   -C/--clpairs         LUM over the graph of scan pairs sharing >= N pairs
-  -L/--loop6DAlgo 4    ELCH slerp loop closing (GraphPipeline)
-  -G/--graphSlam6DAlgo 1  LUM (lum6DEuler) in the GraphPipeline
+  -L/--loop6DAlgo      ELCH loop closing: 1 euler, 2 quat, 3 unitQuat,
+                       4 slerp (GraphPipeline)
+  -G/--graphSlam6DAlgo GraphSLAM: 1 lum6DEuler, 2 lum6DQuat, 3 ghelix6DQ2,
+                       4 gapx6D (GraphPipeline)
   --cldist --loopsize  loop detection distance (cm) and minimum loop length
   -I/--iterSLAM -D/--distSLAM --epsSLAM  LUM iterations, distance, epsilon
   --frames-out --continue --prefetch --exportAllPoints -q
   --device             cuda[:N] | cpu (default: the first card; without a
                        card the run stops unless --device cpu is given)
 
-The flags of paths not ported yet (-L 1..3, -G 2..4, --distributed,
---cache-mb, --plane, --normalShoot, --saveOct, --loadOct, -a 3..10)
-stop with an error naming their ROADMAP item.
+The flags of paths not ported yet (--distributed, --cache-mb,
+--saveOct, --loadOct) stop with an error naming their ROADMAP item, and
+so does a value of -a outside 1..10 or of -L / -G outside 0..4 (the
+JAX package's tpuslam quietly takes quat for such an -a).
 """
 
 from __future__ import annotations
@@ -41,21 +47,24 @@ import time
 
 import numpy as np
 
-ALGO_NAMES = {1: "quat", 2: "svd"}
+ALGO_NAMES = {
+    1: "quat", 2: "svd", 3: "ortho", 4: "dual", 5: "helix",
+    6: "apx", 7: "lumeuler", 8: "lumquat", 9: "quatscale", 10: "napx",
+}
 
 # flag -> (is it set?, ROADMAP item that ports its path)
 _NOT_PORTED = (
-    ("-L/--loop6DAlgo 1..3", lambda a: a.loop6DAlgo in (1, 2, 3),
-     "slice C (ELCH variants 1-3); -L 4 (slerp) is ported"),
-    ("-G/--graphSlam6DAlgo 2..4", lambda a: a.graphSlam6DAlgo > 1,
-     "slice C (graphslam_variants); -G 1 (lum6DEuler) is ported"),
     ("--distributed", lambda a: a.distributed, "slice E (multi-device)"),
     ("--cache-mb", lambda a: a.cache_mb > 0, "slice C (models/streaming)"),
-    ("--plane", lambda a: a.point_to_plane, "A12 (normals-based pairing)"),
-    ("--normalShoot", lambda a: a.normal_shoot, "A12 (normals-based pairing)"),
     ("--saveOct", lambda a: a.save_oct, "slice D (io/boctree)"),
     ("--loadOct", lambda a: a.load_oct, "slice D (io/boctree)"),
-    ("-a/--algo", lambda a: a.algo not in ALGO_NAMES, "A11 (minimizers -a 3..10)"),
+)
+
+# flag -> (its value, the values slam6D defines for it)
+_RANGES = (
+    ("-a/--algo", lambda a: a.algo, range(1, 11)),
+    ("-L/--loop6DAlgo", lambda a: a.loop6DAlgo, range(0, 5)),
+    ("-G/--graphSlam6DAlgo", lambda a: a.graphSlam6DAlgo, range(0, 5)),
 )
 
 
@@ -129,6 +138,12 @@ def main(argv=None) -> int:
     for flag, is_set, item in _NOT_PORTED:
         if is_set(args):
             parser.error(f"{flag} is not ported yet (ROADMAP {item})")
+    for flag, value, valid in _RANGES:
+        if value(args) not in valid:
+            parser.error(
+                f"{flag} {value(args)} is not a slam6D choice "
+                f"({valid.start}..{valid.stop - 1})"
+            )
 
     import torch
 
@@ -194,12 +209,18 @@ def main(argv=None) -> int:
     if not args.quiet:
         print(f"loaded {len(scans)} scans from {args.dir} (device {device})")
 
+    pairing = "closest_point"
+    if args.point_to_plane:
+        pairing = "closest_plane"  # ref slam6D.cc:361
+    if args.normal_shoot:
+        pairing = "along_normal"  # ref slam6D.cc:362
     params = IcpParams(
         max_dist_match2=args.dist**2,
         max_iterations=args.iter,
         epsilon=args.epsICP,
         minimizer=ALGO_NAMES[args.algo],
         subsample=max(args.random, 1),
+        pairing=pairing,
     )
     out_dir = args.frames_out or args.dir
 
@@ -277,9 +298,11 @@ def main(argv=None) -> int:
                 lum_max_dist2=args.distSLAM**2 if args.distSLAM > 0 else args.dist**2,
                 lum_iterations=args.iterSLAM,
                 lum_epsilon=args.epsSLAM,
-                elch=args.loop6DAlgo == 4,
+                elch=args.loop6DAlgo > 0,
+                elch_algo=args.loop6DAlgo,
                 cldist=args.cldist,
                 loopsize=args.loopsize,
+                slam_algo=max(args.graphSlam6DAlgo, 1),
                 device=device,
             ).run(scans)
         else:

@@ -20,9 +20,12 @@ import numpy as np
 from ..io.frames import AlgoType
 from ..io.scandir import RawScan
 from ..ops import reduction as red_ops
+from ..utils.metrics import metrics
 from . import math3d
 
 __all__ = ["Scan"]
+
+NORMALS_TIME = "normals_time"  # metrics timer: reduced_normals_local, per scan
 
 
 @dataclasses.dataclass
@@ -84,6 +87,7 @@ class Scan:
         """Ref Scan::setReductionParameter (-r voxel, -O nrpts)."""
         if voxel != self.reduction_voxel or nrpts != self.reduction_nrpts:
             self._reduced_local = None
+            self.channels.pop("normal reduced", None)
             self.generation += 1
         self.reduction_voxel = voxel
         self.reduction_nrpts = nrpts
@@ -110,6 +114,30 @@ class Scan:
                 device=self.device,
             ).astype(np.float64)
         return self._reduced_local
+
+    def reduced_normals_local(self, k: int = 20) -> np.ndarray:
+        """Unit normals of the reduced points in the local frame, facing
+        the scanner origin (ref calculateNormalsKNN, normals.cc:220-440;
+        the 'normal reduced' channel), computed on the scan's device and
+        cached as f64 numpy."""
+        if "normal reduced" not in self.channels:
+            from ..ops import normals as normals_ops
+
+            r = self.reduced_local().astype(np.float32)
+            with metrics.time(NORMALS_TIME):
+                n = normals_ops.estimate_normals_knn(
+                    r, np.ones(len(r), bool), np.zeros(3, np.float32), k=k,
+                    device=self.device,
+                )
+                self.channels["normal reduced"] = n.cpu().numpy().astype(np.float64)
+        return self.channels["normal reduced"]
+
+    def reduced_normals_padded(self, cap: int) -> np.ndarray:
+        """:meth:`reduced_normals_local` zero-padded to [cap, 3] f32."""
+        n = self.reduced_normals_local()
+        out = np.zeros((cap, 3), dtype=np.float32)
+        out[: len(n)] = n
+        return out
 
     # -- transforms & frames ---------------------------------------------
     def transform(self, align: np.ndarray, algo: AlgoType, record: bool = True) -> None:

@@ -3,7 +3,8 @@ across from the JAX package as plain numpy.
 
 :func:`scans_from_numpy` builds the port's :class:`~.core.scan.Scan`
 objects from what a ``tpu3dtk`` ``TPUScan`` holds — identifier, raw xyz,
-reduced local points, the three pose matrices and the frames log — and
+reduced local points and their normals, the three pose matrices and the
+frames log — and
 an :class:`~.models.icp.IcpParams` from the JAX ``IcpParams`` fields.
 It imports neither ``jax`` nor ``tpu3dtk``: callers pass numpy arrays, e.g.
 ``{"identifier": s.identifier, "xyz": s.xyz, "reduced_local":
@@ -45,8 +46,8 @@ __all__ = [
 # fields of the JAX dataclasses with no counterpart in the port
 _LUM_DROPPED = (
     "pad_multiple", "link_chunk", "nns", "grid_min_points", "grid_max_cap",
-    "dense_solver_max_scans", "mesh", "scan_cap", "point_cap", "link_cap_min",
-    "grid", "device_points", "corr_cache",
+    "mesh", "scan_cap", "point_cap", "link_cap_min",
+    "grid", "device_points", "corr_cache", "device_max_scans",
 )
 _ELCH_DROPPED = ("pad_multiple", "scan_cap", "link_cap_min", "device_points", "corr_cache")
 _PIPE_DROPPED = ("seq_mesh", "lum_mesh", "device_segments")
@@ -168,6 +169,8 @@ def scans_from_numpy(
         )
         if d.get("reduced_local") is not None:
             s._reduced_local = np.array(d["reduced_local"], dtype=np.float64)
+        if d.get("normal reduced") is not None:
+            s.channels["normal reduced"] = np.array(d["normal reduced"], dtype=np.float64)
         out.append(s)
     params = IcpParams(**dict(icp_params or {}))
     if cell_list is None:

@@ -14,11 +14,19 @@ The sequence is uploaded ONCE (``SequenceRegistration._prepare``) and
 the same resident [S, cap, 3] / [S, cap] tensors serve the sequential
 matches, the ELCH windows and edge covariances, and LUM.
 
+The closure is any of ELCH's four variants (``-L 1..4``,
+``elch.ELCH_VARIANTS``) and the relaxation any of the four GraphSLAM
+parametrizations (``-G 1`` the Euler LUM of ``models.graphslam``,
+``-G 2..4`` ``graphslam_variants.GRAPHSLAM_VARIANTS``).  As in the JAX
+package, the correspondence caches serve ``-G 1`` and the ``-L 1`` / ``-L
+4`` edge covariances only; the quaternion, helix and small-angle forms
+recompute every pairing.
+
 The JAX package has a second, segmented loop that runs matching and
 loop detection in on-device segments to pay one device fetch per closure
 instead of one per match; an eager PyTorch ICP loop reads the host once
 per iteration anyway, so the port has the per-match loop only, and no
-mesh fields.  ``-L 1..3`` and ``-G 2..4`` are not ported.
+mesh fields.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from ..core.scan import Scan
 from ..utils.metrics import metrics
 from . import elch as elch_mod
 from . import graphslam as gs
+from .graphslam_variants import GRAPHSLAM_VARIANTS
 from .icp import IcpParams
 from .lum_device import CorrCache
 from .sequence import SequenceRegistration
@@ -49,12 +58,12 @@ class GraphPipeline:
     lum_iterations: int = 50  # -I
     lum_epsilon: float = 0.5  # --epsSLAM
     elch: bool = False  # loop closing enabled (-L > 0)
-    elch_algo: int = 4  # -L: 4 slerp (1 euler, 2 quat, 3 unitQuat: not ported)
+    elch_algo: int = 4  # -L: 1 euler, 2 quat, 3 unitQuat, 4 slerp
     cldist: float = 500.0
     loopsize: int = 20
     mdmll: float = -1.0  # --DlastSLAM (final pass match distance)
     graph_dist: float = -1.0  # --graphDist (final pass graph distance)
-    slam_algo: int = 1  # -G: 1 lum6DEuler (2 lum6DQuat, 3 ghelix6DQ2, 4 gapx6D: not ported)
+    slam_algo: int = 1  # -G: 1 lum6DEuler, 2 lum6DQuat, 3 ghelix6DQ2, 4 gapx6D
     # LUM iterations for the PER-CLOSURE relax (the reference runs
     # doGraphSlam6D(gr, allScans, 1) inside the loop, slam6D.cc:508,
     # and the full -I budget only in the final passes).  None = use
@@ -66,17 +75,16 @@ class GraphPipeline:
     corr_tol_r: float = 2e-3
     device: torch.device | str | None = None  # None: the package default
 
-    def _check_ported(self) -> None:
-        if self.slam_algo not in (0, 1):
-            raise NotImplementedError(
-                f"-G {self.slam_algo} is not ported yet (ROADMAP slice C: "
-                "graphslam_variants); -G 1 (lum6DEuler) is"
-            )
+    def _check_algos(self) -> None:
+        if self.slam_algo not in (0, 1, *GRAPHSLAM_VARIANTS):
+            raise ValueError(f"no GraphSLAM algorithm -G {self.slam_algo} (1..4)")
         if self.elch and self.elch_algo not in elch_mod.ELCH_VARIANTS:
-            raise NotImplementedError(
-                f"-L {self.elch_algo} is not ported yet (ROADMAP slice C: "
-                "ELCH variants 1-3); -L 4 (slerp) is"
-            )
+            raise ValueError(f"no ELCH algorithm -L {self.elch_algo} (1..4)")
+
+    def _do_graph_slam(self, scans, links, params):
+        if self.slam_algo in (0, 1):
+            return gs.do_graph_slam(scans, links, params)
+        return GRAPHSLAM_VARIANTS[self.slam_algo](scans, links, params)
 
     def _lum_params(
         self, max_dist2: float, iterations: int | None = None
@@ -111,7 +119,7 @@ class GraphPipeline:
         return seq
 
     def run(self, scans: list[Scan]) -> list[dict]:
-        self._check_ported()
+        self._check_algos()
         n = len(scans)
         cld2 = self.cldist**2
         results: list[dict] = []
@@ -191,7 +199,7 @@ class GraphPipeline:
             links = gs.build_proximity_graph(
                 positions, self.cldist**2, self.loopsize
             )
-            gs.do_graph_slam(
+            self._do_graph_slam(
                 sub, links,
                 self._lum_params(
                     self.lum_max_dist2,
@@ -203,4 +211,4 @@ class GraphPipeline:
         positions = np.stack([s.rPos for s in scans])
         links = gs.build_proximity_graph(positions, graph_cld2, self.loopsize)
         self.final_links = len(links)
-        gs.do_graph_slam(scans, links, self._lum_params(max_dist2))
+        self._do_graph_slam(scans, links, self._lum_params(max_dist2))

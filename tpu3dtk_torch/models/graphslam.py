@@ -23,13 +23,15 @@ Counterparts in ``tpu3dtk/models/graphslam.py``: :func:`read_net_graph`,
 per link), :func:`link_covariances_global` (the same from resident
 local-frame tensors and a pose stack), :func:`link_covariances_chained`
 (cell-list NN, kernel K2 per link), :func:`assemble_GB`, ``_solve_GX_B``
-(dense f64), :func:`lum_pose_corrections`, :class:`LumParams`,
-``_do_graph_slam_host`` and :func:`do_graph_slam`, which dispatches as
-the JAX package does: up to ``device_max_scans`` scans of fewer than
-``chained_min`` points the relaxation stays on the device
-(``lum_device.lum_run``, or one cached step through
-``lum_device.lum_step_cached``); city-scale scans take the host loop
-with chained covariances.
+(dense f64, block-CG above ``dense_solver_max_scans``),
+:func:`lum_pose_corrections`, :class:`LumParams`, ``_do_graph_slam_host``
+and :func:`do_graph_slam`: scans of fewer than ``chained_min`` points
+relax on the device (``lum_device.lum_run``, or one cached step through
+``lum_device.lum_step_cached``), with a dense solve while the system
+fits in half the device's free memory and the device block-CG beyond;
+city-scale scans take the host loop with chained covariances.  The JAX
+package sends graphs of more than ``device_max_scans`` (512) scans to
+the host loop instead; here they stay on the device.
 
 The JAX package gates the chained covariance engine on a TPU backend;
 the port gates on the scan size alone (``chained_min``).  Shape
@@ -377,11 +379,11 @@ class LumParams:
     # through the cell-list chain (link_covariances_chained) on the host
     # path: O(occupancy) per query instead of the brute O(M) per query
     chained_min: int = 98304
-    # on-device path (models.lum_device): the whole relaxation with the
-    # poses resident on the device and a dense Jacobi-scaled f64 solve
-    # (6*511 = 3066 unknowns at most); graphs of more scans need the
-    # block-CG solver, which is not ported
-    device_max_scans: int = 512
+    # host-path solver split: dense f64 up to this many scans,
+    # block-Jacobi CG (pgsolve.solve_block_cg, O(L) memory) above; the
+    # on-device path solves densely while the system fits in half the
+    # device's free memory (lum_device._dense_fits)
+    dense_solver_max_scans: int = 65
     # pre-uploaded (locals [S,N,3] f32, masks [S,N] bool) device tensors:
     # callers that relax repeatedly over growing prefixes (GraphPipeline)
     # upload the sequence once; scans beyond len(scans) are masked out
@@ -406,18 +408,21 @@ def _solve_GX_B(
     scans_n: int, links: np.ndarray, C: np.ndarray, CD: np.ndarray,
     dense_max: int,
 ) -> np.ndarray:
-    """Solve the LUM system, dense in f64."""
-    if scans_n > dense_max:
-        raise NotImplementedError(
-            f"LUM over {scans_n} scans needs the block-CG solver, which is "
-            "not ported yet (ROADMAP slice C: pgsolve); the dense solve "
-            f"covers up to {dense_max} scans"
-        )
-    G, B = assemble_GB(links, C, CD, scans_n)
-    try:
-        return np.linalg.solve(G, B).reshape(-1, 6)
-    except np.linalg.LinAlgError:
-        return np.linalg.lstsq(G, B, rcond=None)[0].reshape(-1, 6)
+    """Solve the LUM system in f64 on the host: dense up to
+    ``dense_max`` scans, block-CG (``pgsolve.solve_block_cg`` on CPU
+    tensors) above."""
+    if scans_n <= dense_max:
+        G, B = assemble_GB(links, C, CD, scans_n)
+        try:
+            return np.linalg.solve(G, B).reshape(-1, 6)
+        except np.linalg.LinAlgError:
+            return np.linalg.lstsq(G, B, rcond=None)[0].reshape(-1, 6)
+    from . import pgsolve
+
+    n = scans_n - 1
+    C = torch.as_tensor(np.asarray(C, np.float64))
+    B = pgsolve.link_rhs(links, torch.as_tensor(np.asarray(CD, np.float64)), n)
+    return pgsolve.solve_block_cg(links, C, B, n)[0].numpy()
 
 
 def _pad_scan_points(scans, cap):
@@ -438,18 +443,17 @@ def do_graph_slam(
     LUM-tagged frames (one per iteration, scan.cc:918-1009).  Returns
     final mean position shift.
 
-    Dispatch: up to ``device_max_scans`` scans of fewer than
-    ``chained_min`` points each, the relaxation keeps its poses on the
-    device (``models.lum_device``); city-scale scans take the host loop
-    with chained covariances, and so would larger graphs, whose solver
-    (block-CG) is not ported."""
+    Dispatch: scans of fewer than ``chained_min`` points each relax with
+    their poses on the device (``models.lum_device``; graphs whose dense
+    system does not fit on the device solve by the device block-CG);
+    city-scale scans take the host loop with chained covariances."""
     if len(scans) < 2 or len(links) == 0:
         return 0.0
     if params.device_points is not None:
         cap_probe = params.device_points[0].shape[1]
     else:
         cap_probe = max(len(s.reduced_local()) for s in scans)
-    if len(scans) > params.device_max_scans or cap_probe >= params.chained_min:
+    if cap_probe >= params.chained_min:
         return _do_graph_slam_host(scans, links, params)
     return _do_graph_slam_device(scans, links, params)
 
@@ -589,7 +593,7 @@ def _do_graph_slam_host(
                 )
                 C, CD = C.cpu().numpy(), CD.cpu().numpy()
         with metrics.time(LUM_SOLVE):
-            X = _solve_GX_B(len(scans), links, C, CD, params.device_max_scans)
+            X = _solve_GX_B(len(scans), links, C, CD, params.dense_solver_max_scans)
         pos = np.stack([s.rPos for s in scans[1:]])
         theta = np.stack([s.rPosTheta for s in scans[1:]])
         result = lum_pose_corrections(pos, theta, X)

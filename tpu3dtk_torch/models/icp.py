@@ -5,11 +5,14 @@ Each iteration, on the device of the clouds:
 
   1. transform the target points by the current pose (local points stay
      immutable; the pose is composed instead),
-  2. nearest neighbours against the model, prepared once per match
+  2. correspondences against the model, prepared once per match
      (``ops.nn.prepare_brute_model``, ``ops.nn.nn_brute_auto``: the CUDA
-     kernel on a card, the plain version on the CPU),
+     kernel on a card, the plain version on the CPU), projected onto the
+     target's tangent plane for point-to-plane pairing; normal shooting
+     ranks along the target's normal rays (plain torch),
   3. masked centred pair statistics (ref icp6D.cc:144-191),
-  4. a closed-form minimizer (``models.minimizers``),
+  4. a closed-form minimizer (``models.minimizers``; point-to-plane
+     statistics for napx, the current pose for lumeuler / lumquat),
   5. pose update T <- align @ T (ref transformMatrix, scan.cc:878-898),
   6. the stop tests of the JAX package: the two-delta test
      |err - prev| < eps and |err - prevprev| < eps (ref
@@ -60,7 +63,9 @@ class IcpParams(NamedTuple):
     epsilon: float = 1e-5  # --epsICP
     minimizer: str = "quat"  # -a
     subsample: int = 1  # -R: take ~1/rnd of target points per iteration
-    pairing: str = "closest_point"  # ref PairingMode; only this one is ported
+    pairing: str = "closest_point"  # ref PairingMode (pairingMode.h):
+    # "closest_point" | "closest_plane" (point-to-plane projection) |
+    # "along_normal" (normal shooting)
 
 
 class IcpResult(NamedTuple):
@@ -74,13 +79,30 @@ class IcpResult(NamedTuple):
     maxocc: int = 0
 
 
-def _find_pairs(bm: nn_ops.BruteModel, tgt_global, tmask, max_dist2):
-    """Closest-point correspondences for one iteration against the
-    prepared model: matched model points [N,3] and the accept mask [N]."""
-    idx, _d2, found = nn_ops.nn_brute_auto(
-        tgt_global, tmask, bm, None, max_dist2
-    )
-    return bm.model[idx], found
+def _find_pairs(bm: nn_ops.BruteModel, tgt_global, tmask, max_dist2,
+                pairing="closest_point", tgt_normals=None):
+    """Correspondences for one iteration against the prepared model:
+    matched model points [N,3] and the accept mask [N]
+    (SearchTree::getPtPairs, searchTree.cc:126-163).  ``closest_point``
+    and ``closest_plane`` take the nearest model point (kernel K1 on the
+    card); ``closest_plane`` then projects it onto the plane through the
+    target point with the target's normal, s' = (n·(s−t))n + t;
+    ``along_normal`` (normal shooting) ranks by the distance to the
+    target's normal ray, plain torch as the JAX package leaves it to
+    XLA."""
+    if pairing == "along_normal":
+        idx, _d2, found = nn_ops.nn_brute_line(
+            tgt_global, tgt_normals, tmask, bm.model, bm.mmask, max_dist2
+        )
+    else:
+        idx, _d2, found = nn_ops.nn_brute_auto(
+            tgt_global, tmask, bm, None, max_dist2
+        )
+    m_pts = bm.model[idx]
+    if pairing == "closest_plane":
+        dot = (tgt_normals * (m_pts - tgt_global)).sum(1, keepdim=True)
+        m_pts = tgt_global + dot * tgt_normals
+    return m_pts, found
 
 
 def icp_pair(
@@ -91,6 +113,7 @@ def icp_pair(
     subsample: int = 1,
     seed: int = 0,
     pairing: str = "closest_point",
+    target_normals_local=None,
 ) -> IcpResult:
     """Match one target scan against fixed model points.
 
@@ -102,12 +125,20 @@ def icp_pair(
     fresh ~1/subsample random subset of the target points
     (searchTree.cc:54-55), drawn from a CPU ``torch.Generator`` seeded
     with ``seed`` (the JAX package draws from ``jax.random``).
+
+    ``pairing`` (the reference's PairingMode): ``closest_point``,
+    ``closest_plane`` (point-to-plane projection) or ``along_normal``
+    (normal shooting); the last two, and the ``napx`` minimizer, need
+    ``target_normals_local`` [N,3], the target's unit normals in its
+    local frame, carried to the global frame by the current pose each
+    iteration.  ``lumeuler`` / ``lumquat`` are given the current pose
+    (ref icp6D.cc:242-245).
     """
-    if pairing != "closest_point":
-        raise NotImplementedError(
-            f"pairing {pairing!r} is not ported yet (ROADMAP A12: "
-            "normals-based pairing)"
-        )
+    if pairing not in ("closest_point", "closest_plane", "along_normal"):
+        raise ValueError(f"unknown pairing {pairing!r}")
+    need_normals = pairing != "closest_point" or minimizer == "napx"
+    if need_normals and target_normals_local is None:
+        raise ValueError(f"pairing {pairing!r} with minimizer {minimizer!r} needs target normals")
     align_fn = mz.get_minimizer(minimizer)
     dev = model.device
     # the model is fixed for the whole match: centred and packed once
@@ -129,9 +160,19 @@ def icp_pair(
             keep = torch.randint(0, subsample, tmask.shape, generator=gen) == 0
             it_mask = tmask & keep.to(dev)
         tgt_global = math3d.transform3(T, target_local)
-        m_pts, found = _find_pairs(bm, tgt_global, it_mask, md2)
-        stats = mz.pair_stats(m_pts, tgt_global, found)
-        align, err = align_fn(stats)
+        normals_g = None
+        if need_normals:
+            normals_g = math3d.transform3normal(T, target_normals_local).to(torch.float32)
+        m_pts, found = _find_pairs(bm, tgt_global, it_mask, md2, pairing, normals_g)
+        if minimizer == "napx":
+            stats = mz.napx_stats(m_pts, tgt_global, normals_g, found)
+            align, err = align_fn(stats)
+        elif minimizer in mz.POSE_MINIMIZERS:
+            stats = mz.pair_stats(m_pts, tgt_global, found)
+            align, err = align_fn(stats, T)
+        else:
+            stats = mz.pair_stats(m_pts, tgt_global, found)
+            align, err = align_fn(stats)
         # the one device->host read of the iteration
         n, err_v, tnorm, rnorm = torch.stack([
             stats.n.double(),
@@ -185,17 +226,21 @@ def icp_pair_seq(
     subsample: int = 1,
     pairing: str = "closest_point",
     window_cap: int = 0,
+    normals_all=None,
 ) -> IcpResult:
     """Sequence-resident match: the model is built on the device from the
     resident [S, N, 3] local points and the current poses ``mats``
     [S, 4, 4] (scans [lo, hi) of a ``window_cap``-scan window, 0 = all),
-    and scan ``tgt_idx`` is matched against it from pose ``T0``."""
+    and scan ``tgt_idx`` is matched against it from pose ``T0``.
+    ``normals_all``: the resident [S, N, 3] local-frame normals, for the
+    pairings and the minimizer that need them."""
     model, mmask = _window(locals_all, masks_all, mats, lo, hi, window_cap)
     return icp_pair(
         model, mmask, locals_all[tgt_idx], masks_all[tgt_idx], T0,
         max_dist_match2=max_dist_match2, epsilon=epsilon,
         max_iterations=max_iterations, minimizer=minimizer,
         subsample=subsample, seed=seed, pairing=pairing,
+        target_normals_local=None if normals_all is None else normals_all[tgt_idx],
     )
 
 
@@ -293,10 +338,14 @@ def icp_pair_chained(
     redo the match with the brute engine (returned via ``maxocc`` > 0).
     ``spec`` comes from ``ops.nn_cell_list.cell_list_spec``; without one
     it is sized over the model, and the brute engine runs when no spec
-    fits.
+    fits.  The ``napx`` minimizer needs normals, which this engine does
+    not carry: it raises (SequenceRegistration keeps napx on the brute
+    engine).
     """
     from ..ops import nn_cell_list as ncl
 
+    if minimizer == "napx":
+        raise ValueError("the chained engine carries no normals: napx runs on the brute engine")
     align_fn = mz.get_minimizer(minimizer)
     dev = model.device
     model = model.to(torch.float32).contiguous()
@@ -390,11 +439,13 @@ def register_sequence_device(
     minimizer: str = "quat",
     subsample: int = 1,
     pairing: str = "closest_point",
+    normals_all=None,
 ):
     """The whole sequential registration, scan after scan on the device
     (the reference's ``icp6D::doICP``, icp6D.cc:374-437): odometry
     extrapolation, a full ICP match against the resident model window,
     pose update.  The poses stay on the device between matches.
+    ``normals_all``: resident [S, N, 3] local normals (see icp_pair_seq).
 
     Returns (mats [S,4,4] f32 device tensor, errs [S] f32, iters [S]
     int32, npairs [S] f32 numpy); entry 0 keeps its pose.
@@ -418,6 +469,7 @@ def register_sequence_device(
             max_dist_match2, epsilon, i,
             max_iterations=max_iterations, minimizer=minimizer,
             subsample=subsample, pairing=pairing, window_cap=window_cap,
+            normals_all=normals_all,
         )
         mats[i] = _orthonormalize_rot(res.T)
         errs[i] = res.error

@@ -17,7 +17,9 @@ loop of ``models.icp``.  Two NN engines, as in the JAX package:
 
 The JAX package gates the chained engine on a TPU backend; the port
 gates on the sizes alone, so the CPU tests run it through the plain
-version of K2.  The multi-device mesh and the hashed grid are not ported.
+version of K2.  Normals-based pairing, subsampling and the minimizers
+that need normals or the pose (napx, lumeuler, lumquat) stay on brute.
+The multi-device mesh and the hashed grid are not ported.
 """
 
 from __future__ import annotations
@@ -120,6 +122,7 @@ class SequenceRegistration:
                 minimizer=self.params.minimizer,
                 subsample=self.params.subsample,
                 pairing=self.params.pairing,
+                normals_all=prep["normals"],
             )
             mats = mats.cpu().numpy()
         infos = []
@@ -133,9 +136,15 @@ class SequenceRegistration:
             })
         return infos
 
+    def _need_normals(self) -> bool:
+        return self.params.pairing != "closest_point" or self.params.minimizer == "napx"
+
     def _prepare(self, scans: list[Scan]) -> dict:
         """Upload the sequence once as resident [S, N, 3] / [S, N]
-        tensors, every scan padded to one cap (cached per content)."""
+        tensors, every scan padded to one cap (cached per content); with
+        normals-based pairing or the napx minimizer also the reduced
+        points' local normals [S, N, 3] (``Scan.reduced_normals_local``,
+        estimated on the scans' device)."""
         dev = self._device()
         key = (
             tuple(
@@ -158,6 +167,11 @@ class SequenceRegistration:
             r = s.reduced_local()
             locals_pad[si, : len(r)] = r
             masks[si, : len(r)] = True
+        normals = None
+        if self._need_normals():
+            normals = torch.as_tensor(
+                np.stack([s.reduced_normals_padded(cap) for s in scans]), device=dev
+            )
         prep = dict(
             key=key,
             device=dev,
@@ -165,18 +179,22 @@ class SequenceRegistration:
             chain_spec=self._chain_spec(scans, cap),
             locals=torch.as_tensor(locals_pad, device=dev),
             masks=torch.as_tensor(masks, device=dev),
+            normals=normals,
         )
         self._prep = prep
         return prep
 
     def _chain_spec(self, scans: list[Scan], cap: int):
         """Cell-list spec of the chained engine, or None when the run
-        stays on the brute engine (small windows, subsampling, or no
-        spec that fits and beats brute)."""
+        stays on the brute engine (small windows, subsampling, normals,
+        a minimizer that takes the pose, or no spec that fits and beats
+        brute).  The JAX package's gate lets napx through to an engine
+        without normals, where it fails; here napx stays on brute."""
         win_max = len(scans) if self.metascan else 1
         if not (
             self.params.pairing == "closest_point"
             and self.params.subsample == 1
+            and self.params.minimizer not in ("lumeuler", "lumquat", "napx")
             and win_max * cap >= self.chained_min
         ):
             return None
@@ -236,6 +254,7 @@ class SequenceRegistration:
                 subsample=self.params.subsample,
                 pairing=self.params.pairing,
                 window_cap=window_cap,
+                normals_all=prep["normals"],
             )
 
         # per-match engine choice from the ACTUAL model-window size

@@ -112,7 +112,7 @@ def synth_loop(n_scans=60, seed=7, n_pts=6000, density=1.0):
 
 
 def synth_ring(n_scans=468, n_pts=16384, radius=4500.0, half_width=300.0,
-               half_height=600.0, laps=1.3, drift=2.0, seed=11):
+               half_height=600.0, laps=1.3, drift=2.0, seed=11, n_render=None):
     """The hannover2 regime: a ring CORRIDOR (two cylindrical walls +
     floor + ceiling + pillars) traversed for ``laps`` laps, so the
     second lap continuously re-visits the first — the -L 4 continuous
@@ -120,6 +120,8 @@ def synth_ring(n_scans=468, n_pts=16384, radius=4500.0, half_width=300.0,
     Unlike :func:`synth_loop`, the geometry scales with n_scans: scan
     spacing stays sensor-realistic (~laps·2πR/n cm) instead of shrinking
     to nothing.  Returns (locals [n][n_pts,3] f32, true_mats, odo_mats).
+    ``n_render``: make only the first so many scans of the ring (the
+    same scans and poses the whole ring starts with).
     """
     rng = np.random.default_rng(seed)
     cy = 0.0
@@ -182,7 +184,7 @@ def synth_ring(n_scans=468, n_pts=16384, radius=4500.0, half_width=300.0,
     range_max = 8.0 * half_width
     true_mats, odo_mats, locals_ = [], [], []
     dacc = np.zeros(3)
-    for k in range(n_scans):
+    for k in range(n_scans if n_render is None else n_render):
         ang = laps * 2 * np.pi * k / n_scans
         center = np.array(
             [radius * np.cos(ang), cy, radius * np.sin(ang)]
