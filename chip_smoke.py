@@ -92,8 +92,38 @@ exit code and no result line):
    the chained engine (K2) and with the brute engine (K1): same poses.
 10. profile B — one chained bremen match under torch.profiler.
 
-A line before the last is one JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+18. streaming — ``torchslam --cache-mb 64`` on phase 4's directory with
+   phase 4's flags: K1 launches = ICP iterations, a .frames file a scan,
+   phase 4's accuracy gate; the cache's peak bytes (within its budget),
+   the raw payloads alive at once, the device's peak allocation above
+   what was resident (below the reduced sequence's bytes), the largest
+   difference from phase 4's poses.
+22. fixpoint — ``torchicpfixpoint -r 10 -O 1 -d 50 -i 50 --epsExp 3
+   --compare`` on phase 17's 24 scans: K1 launches = the exact runs'
+   iterations (none from the bf16 path), median relative-pose error below
+   odometry's, fixed-against-exact deltas; one fixed match alone, timed,
+   with no K1 launch.
+19. octree — ``torchslam --saveOct`` on the same 24 scans, then
+   ``--loadOct``: one .oct a scan holding the reduced points, a sane
+   header, K1 launches = iterations in both runs, poses within 0.05 cm /
+   1e-4 of each other.
+20. subgraph — ``subgraph_slam`` (chunks of 10, clpairs 100, 50 cm) on the
+   h468 scans from odometry: the LUM metascan level on all 468 (metascans
+   of ~144k points: host LUM with chained covariances), ``icp_only`` on
+   the first 240 (chained ICP); K1 launches = clpairs link calls + LUM
+   link calls, K2 launches = chained link calls + loop trips; ATE below
+   odometry's.
+21. srr — pre-registration and semi-rigid registration of 2000 line
+   scans of 1500 points (``synth.synth_linescans``): K1 launches = ICP
+   iterations + window link calls, the mean position error halved at
+   least, line 0 fixed; 60 lines of 500 points on the card and on the CPU
+   (the plain path): the same poses.
+
+Phase 3 also times a library yardstick for K1: ``torch.cdist(q,
+m).min(dim=1)`` at the first match's shape in both compute modes (no
+mask; a reference point, not a port).  A line before the last is one
+JSON object describing each kernel; the last line is ``{"ok": true,
+"device": {...}}``.
 
 The tuning sweeps behind the wrappers' constants (K1's blocks per SM,
 K2's R and grid), the ranking loops' instruction count in the SASS and
@@ -1438,6 +1468,429 @@ def bremen_phases(dev, params_city):
     }
 
 
+# ---- phases 18-22: the out-of-core, octree, subgraph, semi-rigid and
+# reduced-precision paths (each drives its path through K1 / K2 and
+# counts the launches)
+
+CARD = "cuda"  # the device the phases run their paths on
+CACHE_MB = 64
+# phase 20: SubgraphParams at the h468 regime; the icp_only run takes the
+# first SUBGRAPH_ICP_SCANS scans (chunks of 10: metascans of ~144k points)
+SUBGRAPH_ICP_SCANS = 240
+# phase 21: a mobile-mapping length of line scans, with a lateral drift a
+# line that leaves the last window within the 50 cm match radius
+SRR_LINES = 2000
+SRR_PTS = 1500
+SRR_DRIFT = 0.01
+SRR_SEED = 42
+
+
+def streaming_phase(tmp, scan_dir, idents, seq_mats, true_mats, odo_mats, seq_bytes):
+    """Phase 18: ``torchslam --cache-mb 64`` on phase 4's directory, with
+    phase 4's flags.  Tracks the cache's bytes after every insertion and
+    the raw payloads alive at once; the device's peak allocation above
+    what was resident before."""
+    import threading
+    import weakref
+
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.io import cache as cache_mod
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.ops import nn_cuda
+
+    out_dir = os.path.join(tmp, "frames_stream")
+    lock = threading.Lock()
+    live = []
+    peak = {"raw": 0, "cache": 0}
+    read, put = cache_mod.read_scan, cache_mod.ScanCache.put
+
+    def tracking_read(*a, **k):
+        raw = read(*a, **k)
+        with lock:
+            live.extend((weakref.ref(v), v.nbytes) for v in raw.channels.values())
+            peak["raw"] = max(peak["raw"], sum(nb for r, nb in live if r() is not None))
+        return raw
+
+    def tracking_put(self, key, scan):
+        put(self, key, scan)
+        with lock:
+            peak["cache"] = max(peak["cache"], self._bytes)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nn_cuda.nn_brute_kernel.launches = 0
+    buf = io.StringIO()
+    cache_mod.read_scan, cache_mod.ScanCache.put = tracking_read, tracking_put
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = slam6d.main([
+                scan_dir, "-f", "uos", "-r", "10", "-O", "1", "-d", str(MAX_DIST), "-i", "50",
+                "--epsICP", "1e-6", "--cache-mb", str(CACHE_MB), "--frames-out", out_dir,
+            ])
+        torch.cuda.synchronize()
+    finally:
+        cache_mod.read_scan, cache_mod.ScanCache.put = read, put
+    wall_s = time.perf_counter() - t0
+    launches = nn_cuda.nn_brute_kernel.launches
+    peak_dev = torch.cuda.max_memory_allocated() - base
+    check(rc == 0, f"torchslam --cache-mb returned {rc}")
+    iters = [int(v) for v in re.findall(r"^scan \d+: ITER (\d+)", buf.getvalue(), re.M)]
+    check(len(iters) == H468_SCANS - 1, f"--cache-mb: {len(iters)} matches, want {H468_SCANS - 1}")
+    check(launches == sum(iters), f"--cache-mb: K1 launches {launches} != ICP iterations {sum(iters)}")
+    paths = [frames_io.frames_path(out_dir, i) for i in idents]
+    check(all(os.path.exists(p) for p in paths), "--cache-mb: a scan has no .frames file")
+    mats = np.stack([frames_io.final_pose(p) for p in paths])
+    check(bool(np.isfinite(mats).all()), "--cache-mb: non-finite poses")
+    e = rel_trans_err(mats, true_mats)
+    eo = rel_trans_err(np.stack(odo_mats), true_mats)
+    med, med_o = float(np.median(e)), float(np.median(eo))
+    dt = float(np.abs(mats[:, :3, 3] - seq_mats[:, :3, 3]).max())
+    dr = float(np.abs(mats[:, :3, :3] - seq_mats[:, :3, :3]).max())
+    phase(
+        18, "streaming",
+        f"torchslam --cache-mb {CACHE_MB} on {H468_SCANS} scans: wall {wall_s:.2f} s, "
+        f"{sum(iters)} ICP iterations = K1 launches {launches}; peak cache {peak['cache']} bytes "
+        f"(budget {CACHE_MB << 20}), raw payloads alive at once at most {peak['raw']} bytes; peak "
+        f"device allocation {peak_dev} bytes above the {base} resident before (the {H468_SCANS} "
+        f"reduced scans hold {seq_bytes}); relative-pose error median {med:.4f} cm, max "
+        f"{e.max():.4f} (odometry {med_o:.4f}); largest difference from phase 4's poses "
+        f"{dt:.4f} cm / {dr:.2e} rot",
+    )
+    check(peak["cache"] <= CACHE_MB << 20, "--cache-mb: the cache outgrew its budget")
+    check(peak_dev < seq_bytes, "--cache-mb: the device held more than the reduced sequence")
+    check(med <= GATE_MEDIAN_CM and med < med_o, f"--cache-mb: median relative-pose error {med} cm")
+    return launches
+
+
+def _cli(mod, argv):
+    """``mod.main(argv)`` with its output captured: (rc, text, wall s)."""
+    import torch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def fixpoint_phase(tmp, scan_dir, idents, truth, odo):
+    """Phase 22: ``torchicpfixpoint --compare`` on phase 17's 24 scans:
+    K1 launches equal the exact runs' iterations (none from the fixed
+    path); then one fixed match alone, with no K1 launch, timed."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.cli import icp_fixpoint
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io.scandir import read_scan_dir
+    from tpu3dtk_torch.models import sc_fixed
+    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    out_dir = os.path.join(tmp, "frames_fixed")
+    os.makedirs(out_dir)
+    compared = []
+    compare = sc_fixed.compare_fixed_float
+
+    def recording_compare(*a, **k):
+        compared.append(compare(*a, **k))
+        return compared[-1]
+
+    metrics.reset()
+    nn_cuda.nn_brute_kernel.launches = 0
+    sc_fixed.compare_fixed_float = recording_compare
+    try:
+        rc, text, wall_s = _cli(icp_fixpoint, [
+            scan_dir, "-r", "10", "-O", "1", "-d", str(MAX_DIST), "-i", "50", "--epsExp", "3",
+            "--compare", "--frames-out", out_dir,
+        ])
+    finally:
+        sc_fixed.compare_fixed_float = compare
+    launches = nn_cuda.nn_brute_kernel.launches
+    cnt = {k: int(m.total) for k, m in metrics.counters.items()}
+    check(rc == 0, f"torchicpfixpoint returned {rc}")
+    n = len(idents)
+    iters = [int(v) for v in re.findall(r"^scan \d+: ITER (\d+)", text, re.M)]
+    deltas = [float(v) for v in re.findall(r"bf16-vs-f32 delta ([\d.]+) cm", text)]
+    check(len(iters) == len(deltas) == len(compared) == n - 1,
+          f"torchicpfixpoint: {len(iters)} matches, {len(deltas)} comparisons, want {n - 1}")
+    exact = cnt.get(sc_fixed.FLOAT_ITERATIONS, 0)
+    check(exact == sum(r["iterations_float"] for r in compared), "exact iteration count")
+    check(launches == exact, f"torchicpfixpoint: K1 launches {launches} != the exact runs' "
+          f"iterations {exact}: the fixed path reached K1")
+    mats = np.stack([frames_io.final_pose(frames_io.frames_path(out_dir, i)) for i in idents])
+    e = rel_trans_err(mats, truth)
+    eo = rel_trans_err(np.stack(odo), truth)
+    dts = np.array([r["delta_translation_cm"] for r in compared])
+    drs = np.array([r["delta_rotation_fro"] for r in compared])
+
+    # one fixed match alone (scans 1 against 0, as the CLI pads them)
+    red = []
+    for raw in read_scan_dir(scan_dir, format="uos", end=1):
+        s = Scan.from_raw(raw, device=CARD)
+        s.set_reduction(10.0, 1)
+        red.append(s)
+    cap = ((max(len(s.reduced_local()) for s in red) + 511) // 512) * 512
+
+    def padded(pts):
+        out = np.zeros((cap, 3), np.float32)
+        out[: len(pts)] = pts
+        m = np.zeros(cap, bool)
+        m[: len(pts)] = True
+        return torch.as_tensor(out, device=CARD), torch.as_tensor(m, device=CARD)
+
+    T0 = red[0].transMat
+    mp, mm = padded(red[0].reduced_local() @ T0[:3, :3].T + T0[:3, 3])
+    tp, tm = padded(red[1].reduced_local())
+    T1 = torch.as_tensor(red[1].transMat, dtype=torch.float32, device=CARD)
+    sc_fixed.icp_pair_fixed(mp, mm, tp, tm, T1, MAX_DIST**2, max_iterations=50, eps_exp=3)
+    nn_cuda.nn_brute_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sc_fixed.icp_pair_fixed(mp, mm, tp, tm, T1, MAX_DIST**2, max_iterations=50, eps_exp=3)
+    torch.cuda.synchronize()
+    fixed_ms = (time.perf_counter() - t0) * 1e3 / res.iterations
+    check(nn_cuda.nn_brute_kernel.launches == 0, "a fixed match launched K1")
+    phase(
+        22, "fixpoint",
+        f"torchicpfixpoint --epsExp 3 --compare on {n} scans: wall {wall_s:.2f} s; fixed "
+        f"iterations {sum(iters)} (all fixed runs {cnt.get(sc_fixed.FIXED_ITERATIONS, 0)}), exact "
+        f"iterations {exact} = K1 launches {launches}; fixed against exact: translation delta "
+        f"median {np.median(dts):.4f} cm, max {dts.max():.4f}; rotation delta (Frobenius) median "
+        f"{np.median(drs):.3e}, max {drs.max():.3e}; a fixed iteration at {cap} x {cap} "
+        f"{fixed_ms:.3f} ms ({res.iterations} iterations, no K1 launch); relative-pose error "
+        f"median {np.median(e):.4f} cm, max {e.max():.4f} (odometry {np.median(eo):.4f})",
+    )
+    check(bool(np.isfinite(mats).all()), "torchicpfixpoint: non-finite poses")
+    check(float(np.median(e)) < float(np.median(eo)), "torchicpfixpoint: no better than odometry")
+    return launches
+
+
+def octree_phase(tmp, scan_dir, idents):
+    """Phase 19: ``torchslam --saveOct`` on phase 17's 24 scans, then
+    ``--loadOct`` on the same directory."""
+    import numpy as np
+
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io import boctree
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io.scandir import read_scan_dir
+    from tpu3dtk_torch.ops import nn_cuda
+
+    flags = ["-f", "uos", "-r", "10", "-O", "1", "-d", str(MAX_DIST), "-i", "50", "--epsICP", "1e-6"]
+    runs = {}
+    load_out = os.path.join(tmp, "frames_oct")
+    os.makedirs(load_out)
+    for name, extra in (("saveOct", ["--saveOct", "--frames-out", scan_dir]),
+                        ("loadOct", ["--loadOct", "--frames-out", load_out])):
+        nn_cuda.nn_brute_kernel.launches = 0
+        rc, text, wall_s = _cli(slam6d, [scan_dir, *flags, *extra])
+        launches = nn_cuda.nn_brute_kernel.launches
+        check(rc == 0, f"torchslam --{name} returned {rc}")
+        iters = [int(v) for v in re.findall(r"^scan \d+: ITER (\d+)", text, re.M)]
+        check(len(iters) == len(idents) - 1, f"--{name}: {len(iters)} matches")
+        check(launches == sum(iters), f"--{name}: K1 launches {launches} != ICP iterations {sum(iters)}")
+        out = extra[-1]
+        mats = np.stack([frames_io.final_pose(frames_io.frames_path(out, i)) for i in idents])
+        check(bool(np.isfinite(mats).all()), f"--{name}: non-finite poses")
+        runs[name] = (mats, wall_s, sum(iters))
+    octs = sorted(f for f in os.listdir(scan_dir) if f.endswith(".oct"))
+    check(octs == [f"scan{i}.oct" for i in idents], f"{len(octs)} .oct files for {len(idents)} scans")
+    counts = []
+    for raw in read_scan_dir(scan_dir, format="uos"):
+        s = Scan.from_raw(raw, device=CARD)
+        s.set_reduction(10.0, 1)
+        p = os.path.join(scan_dir, f"scan{s.identifier}.oct")
+        h = boctree.oct_header(p)
+        pts = boctree.read_oct(p)
+        check(h["voxel"] == 10.0 and h["pointdim"] == 3 and bool((h["mins"] <= h["maxs"]).all()),
+              f"{p}: header {h}")
+        check(len(pts) == len(s.reduced_local()), f"{p}: {len(pts)} points, reduced "
+              f"{len(s.reduced_local())}")
+        counts.append(len(pts))
+    (sm, s_s, s_it), (lm, l_s, l_it) = runs["saveOct"], runs["loadOct"]
+    dt = float(np.abs(sm[:, :3, 3] - lm[:, :3, 3]).max())
+    dr = float(np.abs(sm[:, :3, :3] - lm[:, :3, :3]).max())
+    nbytes = sum(os.path.getsize(os.path.join(scan_dir, f)) for f in octs)
+    phase(
+        19, "octree",
+        f"--saveOct on {len(idents)} scans {s_s:.2f} s ({s_it} ICP iterations = K1 launches), "
+        f"{len(octs)} .oct files, {nbytes} bytes, {min(counts)}-{max(counts)} points each (= the "
+        f"reduced counts); --loadOct {l_s:.2f} s ({l_it} = K1 launches); largest pose difference "
+        f"{dt:.4f} cm / {dr:.2e} rot",
+    )
+    check(dt <= 0.05 and dr <= 1e-4, "--loadOct poses differ from --saveOct's")
+    return s_it + l_it
+
+
+def dir_phases(locals_, true_mats, odo_mats):
+    """Phases 22 and 19 on phase 17's directory (the first 24 h468
+    scans), written anew.  Returns K1's launches in each."""
+    import numpy as np
+
+    from tpu3dtk_torch import synth
+
+    n = MATRIX_SCANS
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_dir = os.path.join(tmp, "scans")
+        idents = synth.write_scan_dir(scan_dir, locals_[:n], odo_mats[:n])
+        fixed = fixpoint_phase(tmp, scan_dir, idents, np.stack(true_mats[:n]), odo_mats[:n])
+        octree = octree_phase(tmp, scan_dir, idents)
+    return {"octree": octree, "fixpoint": fixed}
+
+
+def subgraph_phase(reduced, true_mats, odo_mats):
+    """Phase 20: ``subgraph_slam`` on the h468 scans from odometry, once
+    with the LUM metascan level (all scans) and once ``icp_only``.
+    Returns K1's and K2's launches in each run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.models import graphslam as gs
+    from tpu3dtk_torch.models import icp as icp_mod
+    from tpu3dtk_torch.models import sequence as seq_mod
+    from tpu3dtk_torch.models import subgraph as sg
+    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.ops.nn_cell_list_cuda import cell_list_rows_kernel
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    params = sg.SubgraphParams(
+        size=10, clpairs=100, max_dist_match2=MAX_DIST**2, lum_max_dist2=MAX_DIST**2,
+        iterations=50, lum_iterations=25,
+    )
+    out = {}
+    for icp_only, n in ((False, H468_SCANS), (True, SUBGRAPH_ICP_SCANS)):
+        scans = fresh_scans(reduced[:n], CARD)
+        truth = np.stack(true_mats[:n])
+        metrics.reset()
+        nn_cuda.nn_brute_kernel.launches = 0
+        cell_list_rows_kernel.launches = 0
+        t0 = time.perf_counter()
+        info = sg.subgraph_slam(scans, dataclasses.replace(params, icp_only=icp_only), device=CARD)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k1, k2 = nn_cuda.nn_brute_kernel.launches, cell_list_rows_kernel.launches
+        cnt = {k: int(m.total) for k, m in metrics.counters.items()}
+        tim = {k: m.total for k, m in metrics.timers.items()}
+        clp, lum = cnt.get(gs.CLPAIRS_LINK_CALLS, 0), cnt.get(gs.LUM_LINK_CALLS, 0)
+        chained, trips = cnt.get(gs.CHAINED_LINK_CALLS, 0), cnt.get(icp_mod.CHAINED_TRIPS, 0)
+        redone = cnt.get(seq_mod.CHAINED_REDONE, 0)
+        mats = np.stack([s.transMat for s in scans])
+        ate, ate_o = ate_rmse(mats, truth), ate_rmse(odo_mats[:n], truth)
+        label = "icp_only" if icp_only else "LUM"
+        phase(
+            20, "subgraph",
+            f"{label} metascan level, {n} scans: {info['chunks']} chunks, chunk links "
+            f"{sum(info['chunk_links'])}, meta links {info['meta_links']}; wall {wall_s:.2f} s: "
+            f"chunks {tim.get(sg.SUBGRAPH_CHUNKS, 0.0):.2f} s, metascans built "
+            f"{tim.get(sg.SUBGRAPH_METASCANS, 0.0):.2f} s, metascan level "
+            f"{tim.get(sg.SUBGRAPH_META, 0.0):.2f} s (LUM covariances "
+            f"{tim.get(gs.LUM_COV, 0.0):.2f} s, solves {tim.get(gs.LUM_SOLVE, 0.0):.2f} s); "
+            f"K1 launches {k1} = {clp} clpairs link calls + {lum} LUM link calls"
+            f"{f' + the brute redos of {redone} matches' if redone else ''}; K2 launches {k2} = "
+            f"{chained} chained LUM link calls + {trips} chained ICP loop trips; ATE rmse "
+            f"{ate:.2f} cm (odometry {ate_o:.2f})",
+        )
+        check(k1 == clp + lum if not redone else k1 > clp + lum,
+              f"subgraph {label}: K1 launches {k1}, clpairs {clp} + LUM {lum}")
+        check(k2 == chained + trips and k2 > 0,
+              f"subgraph {label}: K2 launches {k2} != {chained} + {trips}")
+        if icp_only:
+            n_chain = cnt.get(seq_mod.CHAINED_MATCHES, 0)
+            check(n_chain == info["chunks"] - 1, f"subgraph icp_only: {n_chain} chained matches")
+            check(redone < n_chain, "subgraph icp_only: every chained match was redone by brute")
+        check(bool(np.isfinite(mats).all()), f"subgraph {label}: non-finite poses")
+        check(ate < ate_o, f"subgraph {label}: ATE {ate} cm is no better than odometry's {ate_o}")
+        out[label] = (k1, k2)
+    return out
+
+
+def _srr_run(n_lines, n_pts, drift, device, params):
+    """Line scans from ``synth.synth_linescans`` pre-registered on their
+    first and last 7 lines, then semi-rigidly registered on ``device``:
+    (LineScanSet, truth, errors before / after pre-registration / after,
+    pre-registration ICP iterations, wall s)."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.models import srr
+
+    locs, truth, odo = synth.synth_linescans(
+        n_lines=n_lines, pts_per_line=n_pts, drift=drift, seed=SRR_SEED)
+    ls = srr.LineScanSet.from_lists(locs, odo)
+
+    def err():
+        return float(np.linalg.norm(ls.poses[:, :3, 3] - truth[:, :3, 3], axis=1).mean())
+
+    before = err()
+    t0 = time.perf_counter()
+    it = srr.pre_registration(ls, (0, 6), (n_lines - 7, n_lines - 1), max_dist_match2=2500.0,
+                              max_iterations=80, device=device)
+    mid = err()
+    srr.semi_rigid_registration(ls, params, device=device)
+    if device == CARD:
+        torch.cuda.synchronize()
+    return ls, (before, mid, err()), it, time.perf_counter() - t0
+
+
+def srr_phase():
+    """Phase 21: semi-rigid registration of 2000 line scans of 1500
+    points on the card; 60 lines of 500 points on the card and on the
+    CPU (the plain path).  Returns K1's launches in the first."""
+    import numpy as np
+
+    from tpu3dtk_torch.models import srr
+    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    params = srr.SrrParams(scaninterval=10, scansize=10, iterations=3, lum_max_dist2=2500.0,
+                           odom_weight=5.0)
+    metrics.reset()
+    nn_cuda.nn_brute_kernel.launches = 0
+    ls, (before, mid, after), it, wall_s = _srr_run(SRR_LINES, SRR_PTS, SRR_DRIFT, CARD, params)
+    launches = nn_cuda.nn_brute_kernel.launches
+    links = int(metrics.counters[srr.SRR_LINK_CALLS].total)
+    window = len(ls.global_window(SRR_LINES // 2 - 10, SRR_LINES // 2 + 10))
+    phase(
+        21, "srr",
+        f"{SRR_LINES} lines x {SRR_PTS} points (windows of 21 lines, {window} points), drift "
+        f"{SRR_DRIFT} cm a line: {wall_s:.2f} s; mean position error {before:.4f} cm, after "
+        f"pre-registration {mid:.4f}, after {params.iterations} semi-rigid iterations "
+        f"{after:.4f}; K1 launches {launches} = {it} pre-registration ICP iterations + {links} "
+        f"window link calls",
+    )
+    check(launches == it + links, f"srr: K1 launches {launches} != {it} + {links}")
+    check(after < 0.5 * before, f"srr: mean position error {after} cm, before {before}")
+    check(bool((ls.poses[0] == ls.poses_org[0]).all()), "srr: line 0 moved")
+    check(bool(np.isfinite(ls.poses).all()), "srr: non-finite poses")
+
+    out = {}
+    for dev in (CARD, "cpu"):
+        out[dev] = _srr_run(60, 500, 0.25, dev, params)
+    (c_ls, c_err, c_it, c_s), (p_ls, p_err, p_it, p_s) = out[CARD], out["cpu"]
+    dt = float(np.abs(c_ls.poses[:, :3, 3] - p_ls.poses[:, :3, 3]).max())
+    dr = float(np.abs(c_ls.poses[:, :3, :3] - p_ls.poses[:, :3, :3]).max())
+    phase(
+        21, "srr",
+        f"60 lines x 500 points: cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; pre-registration "
+        f"iterations {c_it} / {p_it}; mean position error {c_err[0]:.4f} -> {c_err[2]:.4f} cm "
+        f"(cpu {p_err[2]:.4f}); max pose diff {dt:.4f} cm / {dr:.2e} rot",
+    )
+    check(dt <= 0.5 and dr <= 1e-3, "srr: card and plain path poses disagree")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
@@ -1537,6 +1990,18 @@ def main() -> int:
     err_r, k_ms, p_ms, k_dev_ms, *_ = compare_nn(
         "h468 first match, reduced + padded", q_red, qm_red,
         m_red.contiguous(), mm_red.contiguous(), md2,
+    )
+    # a library yardstick, not a port: the nearest distance by two
+    # PyTorch calls with no mask, in both of cdist's compute modes
+    lib_ms = {
+        mode: cuda_ms(lambda: torch.cdist(q_red, m_red, compute_mode=mode).min(dim=1), reps=10)
+        for mode in ("use_mm_for_euclid_dist", "donot_use_mm_for_euclid_dist")
+    }
+    phase(
+        3, "kernels",
+        f"library yardstick at {q_red.shape[0]} x {m_red.shape[0]}: torch.cdist(q, m).min(dim=1) "
+        f"(no mask) {lib_ms['use_mm_for_euclid_dist']:.4f} ms with the mm expansion, "
+        f"{lib_ms['donot_use_mm_for_euclid_dist']:.4f} ms direct; K1 prepared {k_ms:.4f} ms",
     )
 
     k1_q, k1_m = q_red.shape[0], m_red.shape[0]
@@ -1657,6 +2122,10 @@ def main() -> int:
             frames_io.final_pose(frames_io.frames_path(out_dir, i)) for i in idents
         ])
         nframes = len(frames_io.read_frames(frames_io.frames_path(out_dir, idents[0]))[0])
+        stream_launches = streaming_phase(
+            tmp, scan_dir, idents, mats, np.stack(true_mats), odo_mats,
+            sum(len(s.reduced_local()) for s in reduced) * 12,
+        )
     check(nframes == H468_SCANS - 1, f"{nframes} frames per scan, want {H468_SCANS - 1}")
     check(bool(np.isfinite(mats).all()), "non-finite poses")
     e = rel_trans_err(mats, true_mats)
@@ -1715,6 +2184,9 @@ def main() -> int:
     graph_launches, ate11 = graph_phases(reduced, true_mats, odo_mats, seq_only)
     quat_launches = quat_graph_phase(reduced, true_mats, odo_mats, ate11)
     matrix_launches = icp_matrix_phase(locals_, true_mats, odo_mats)
+    dir_launches = dir_phases(locals_, true_mats, odo_mats)
+    subgraph_launches = subgraph_phase(reduced, true_mats, odo_mats)
+    srr_launches = srr_phase()
     del reduced, locals_
 
     k2 = bremen_phases(dev, IcpParams(
@@ -1730,6 +2202,11 @@ def main() -> int:
         "launches_h468_sequential": launches,
         "launches_h468_quat": quat_launches,
         "launches_icp_matrix": matrix_launches,
+        "launches_streaming": stream_launches,
+        "launches_octree": dir_launches["octree"],
+        "launches_fixpoint_exact": dir_launches["fixpoint"],
+        "launches_subgraph": {k: v[0] for k, v in subgraph_launches.items()},
+        "launches_srr": srr_launches,
         "launches_bremen": k2["k1_launches"],
         "max_abs_err": max_abs_err,
         "ms": k_ms,
@@ -1738,7 +2215,9 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "instr_bound_ms": k1_instr,
-        "library_ms": None,
+        "library_ms": min(lib_ms.values()),
+        "library_mm_ms": lib_ms["use_mm_for_euclid_dist"],
+        "library_direct_ms": lib_ms["donot_use_mm_for_euclid_dist"],
         "window_ms": kw_ms,
         "window_plain_ms": pw_ms,
         "window_device_ms": kw_dev_ms,
@@ -1750,6 +2229,7 @@ def main() -> int:
         "source": "tpu3dtk_torch/csrc/nn_cell_list.cu",
         "replaces": "tpu3dtk/ops/nn_pallas.py:224",
         "launches": k2["launches"],
+        "launches_subgraph": {k: v[1] for k, v in subgraph_launches.items()},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -32,6 +32,16 @@ from tpu3dtk_torch.synth import synth_loop
 from tpu3dtk_torch.utils.metrics import metrics
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run has six test processes, and
+    eight spinning threads each slow every process on the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(rng):
     # tests/test_nn_pallas.py:106-130
     world = rng.uniform(0, 400, (5000, 3)).astype(np.float32)

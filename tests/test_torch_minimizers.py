@@ -135,3 +135,27 @@ def test_raw_moment_properties_match_jax():
         want = np.asarray(getattr(js, f))
         np.testing.assert_allclose(getattr(ts, f).numpy(), want, rtol=0,
                                    atol=1e-5 * np.abs(want).max(), err_msg=f)
+
+
+def test_helix_takes_the_zero_rotation_limit_on_aligned_pairs():
+    """On exactly aligned pairs (a lattice cloud matched to itself, as
+    -O 0 voxel centres converge) the helix system's right-hand side is
+    zero, so c = 0 and c·c̄ / |c|² is 0/0.  The port takes the zero
+    rotation limit (R = I, t = c̄ = 0) of graphslam_variants'
+    _helix_computeRt, with no host read; the JAX package's ICP
+    align_helix returns a NaN translation there (ROADMAP queue 3)."""
+    g = np.stack(np.meshgrid(*(np.arange(6.0) * 25.0,) * 3, indexing="ij"), -1)
+    P = torch.as_tensor(g.reshape(-1, 3) - [60.0, 40.0, 75.0], dtype=torch.float32)
+    w = torch.ones(len(P), dtype=torch.bool)
+    T, err = tmz.align_helix(tmz.pair_stats(P, P, w))
+    assert bool(torch.isfinite(T).all())
+    np.testing.assert_array_equal(T.numpy(), np.eye(4, dtype=np.float32))
+    assert float(err) == 0.0
+    # a small motion still takes the general formula, as JAX does
+    m, d, w2, _T = _pairs(6)
+    js = jmz.pair_stats(jnp.asarray(m), jnp.asarray(d), jnp.asarray(w2))
+    ts = tmz.PairStats(*(torch.as_tensor(np.array(v)) for v in js))
+    jT, _ = jmz.align_helix(js)
+    tT, _ = tmz.align_helix(ts)
+    np.testing.assert_allclose(tT.numpy(), np.asarray(jT), rtol=0,
+                               atol=1e-5 * max(np.abs(np.asarray(jT)).max(), 1.0))

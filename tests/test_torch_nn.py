@@ -21,6 +21,16 @@ from tpu3dtk_torch.ops import nn as tnn
 from tpu3dtk_torch.ops import nn_cuda
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run has six test processes, and
+    eight spinning threads each slow every process on the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.asarray(a))
 

@@ -23,6 +23,16 @@ from tpu3dtk_torch.models import graphslam_variants, pgsolve
 from tpu3dtk_torch.ops import cuda_build, knn, nn, nn_cuda, normals, reduction
 from tpu3dtk_torch.ops import nn_cell_list, nn_cell_list_cuda
 from tpu3dtk_torch.tools import kernel_tuning
+from tpu3dtk_torch.io import boctree
+from tpu3dtk_torch.models import sc_fixed, srr, streaming, subgraph
+from tpu3dtk_torch.cli import icp_fixpoint
+assert callable(boctree.write_oct) and callable(streaming.register_streaming)
+assert callable(subgraph.subgraph_slam) and callable(srr.semi_rigid_registration)
+assert callable(sc_fixed.icp_pair_fixed) and callable(interop.line_scan_set_from_numpy)
+a = icp_fixpoint.build_parser().parse_args(["d", "--epsExp", "4", "--compare", "--device", "cpu"])
+assert (a.epsExp, a.compare, a.device) == (4, True, "cpu")
+a = slam6d.build_parser().parse_args(["d", "--cache-mb", "64", "--saveOct", "--loadOct"])
+assert (a.cache_mb, a.save_oct, a.load_oct) == (64, True, True)
 assert callable(icp.icp_pair_chained) and callable(synth.synth_city)
 assert callable(graphslam.do_graph_slam) and callable(nn_cell_list.cell_list_rows)
 assert callable(lum_device.lum_run) and callable(elch.close_loop)
@@ -107,4 +117,20 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
     C = np.tile(np.eye(6), (1, 1, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pgsolve.solve_block_cg(np.array([[0, 1]]), C, np.ones((1, 6)), 1)
+    from tpu3dtk_torch.cli import icp_fixpoint
+    from tpu3dtk_torch.models import sc_fixed, srr, streaming, subgraph
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streaming.register_streaming(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        subgraph.subgraph_slam(two)
+    lines = srr.LineScanSet.from_lists([pts, pts], np.tile(np.eye(4), (2, 1, 1)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        srr.pre_registration(lines, (0, 0), (1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        srr.semi_rigid_registration(lines, srr.SrrParams())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sc_fixed.compare_fixed_float(pts, pts, np.eye(4), 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        icp_fixpoint.main([str(tmp_path)])
     assert SequenceRegistration(device="cpu")._device() == torch.device("cpu")

@@ -68,3 +68,17 @@ def test_net_file_roundtrip(tmp_path):
     assert open(path).read().split()[:2] == ["13", "13"]
     np.testing.assert_array_equal(read_net_graph(path), links)
     np.testing.assert_array_equal(jax_read(path), links)
+
+
+def test_synth_linescans_equals_test_srr():
+    """The line-scan generator reproduces tests/test_srr.py::_make_linescans
+    (same draws; pose formulas of both packages' numpy math3d)."""
+    from tests.test_srr import _make_linescans
+
+    ls, true_poses = _make_linescans(np.random.default_rng(42), L=12, pts_per_line=300)
+    locs, true_mats, odo_mats = synth.synth_linescans(n_lines=12, pts_per_line=300, seed=42)
+    assert len(locs) == 12 and all(p.shape == (300, 3) for p in locs)
+    np.testing.assert_allclose(np.stack(locs), ls.points, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(true_mats, true_poses, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(odo_mats, ls.poses_org, rtol=0, atol=1e-12)
+    assert ls.masks.all()

@@ -8,16 +8,19 @@ every kernel the JAX package wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
 
 - ``core``   math3d (numpy/torch backends), Scan
-- ``io``     scan directories, formats, .frames, prefetch cache
+- ``io``     scan directories, formats, .frames, prefetch cache, .oct
+  octree files
 - ``ops``    voxel reduction, brute NN and cell-list NN (each a plain
   torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``)
 - ``models`` minimizers, ICP (while-style loop, the chained cell-list
   engine, loop-closure windows), sequential registration, LUM graph
   relaxation (on the device and the host path), the correspondence
-  cache, ELCH loop closing, the GraphPipeline
+  cache, ELCH loop closing, the GraphPipeline, out-of-core streaming,
+  subgraph SLAM, semi-rigid line-scan registration, the bf16 ICP harness
 - ``utils``  named-phase metrics
 - ``cli``    torchslam (the slam6D-style command; sequential ICP, ``-n`` /
-  ``-C`` graph LUM, ``-L 4 -G 1`` GraphPipeline)
+  ``-C`` graph LUM, ``-L``/``-G`` GraphPipeline, ``--cache-mb``,
+  ``--saveOct``/``--loadOct``), torchicpfixpoint
 
 This package imports neither ``jax`` nor ``tpu3dtk``.
 """

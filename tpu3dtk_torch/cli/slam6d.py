@@ -5,7 +5,9 @@ PyTorch and CUDA.
 Ported: sequential ICP registration (the default path); with -n/--net
 or -C/--clpairs, LUM over an explicit or a shared-pairs pose graph after
 it (the bremen_city workflow); with -L 1..4 and/or -G 1..4 the full
-GraphPipeline (loop detection, ELCH closure, GraphSLAM relaxation), with
+GraphPipeline (loop detection, ELCH closure, GraphSLAM relaxation); with
+--cache-mb out-of-core window-1 sequential ICP (``models.streaming``).
+Flags:
   -s/--start -e/--end --scans  scan range
   -f/--format          scan format (uos, uosr, xyz, ...; text formats)
   -m/--max -M/--min -u range and custom point filters (cm)
@@ -28,14 +30,23 @@ GraphPipeline (loop detection, ELCH closure, GraphSLAM relaxation), with
                        4 gapx6D (GraphPipeline)
   --cldist --loopsize  loop detection distance (cm) and minimum loop length
   -I/--iterSLAM -D/--distSLAM --epsSLAM  LUM iterations, distance, epsilon
+  --cache-mb N         stream the scans through an N MiB LRU cache of
+                       reduced clouds (only -d, -i and --epsICP reach
+                       the streaming ICP, as in the JAX package: -a, -R
+                       and --metascan are ignored there)
+  --saveOct --loadOct  write each scan's reduced points as a
+                       show-compatible scan<id>.oct (voxel -r or 10)
+                       into the frames directory after the run; read
+                       <dir>/scan<id>.oct, where one exists, in place
+                       of the reduction
   --frames-out --continue --prefetch --exportAllPoints -q
   --device             cuda[:N] | cpu (default: the first card; without a
                        card the run stops unless --device cpu is given)
 
-The flags of paths not ported yet (--distributed, --cache-mb,
---saveOct, --loadOct) stop with an error naming their ROADMAP item, and
-so does a value of -a outside 1..10 or of -L / -G outside 0..4 (the
-JAX package's tpuslam quietly takes quat for such an -a).
+The flag of the path not ported yet (--distributed) stops with an
+error naming its ROADMAP item, and so does a value of -a outside 1..10
+or of -L / -G outside 0..4 (the JAX package's tpuslam quietly takes quat
+for such an -a).
 """
 
 from __future__ import annotations
@@ -55,9 +66,6 @@ ALGO_NAMES = {
 # flag -> (is it set?, ROADMAP item that ports its path)
 _NOT_PORTED = (
     ("--distributed", lambda a: a.distributed, "slice E (multi-device)"),
-    ("--cache-mb", lambda a: a.cache_mb > 0, "slice C (models/streaming)"),
-    ("--saveOct", lambda a: a.save_oct, "slice D (io/boctree)"),
-    ("--loadOct", lambda a: a.load_oct, "slice D (io/boctree)"),
 )
 
 # flag -> (its value, the values slam6D defines for it)
@@ -150,6 +158,7 @@ def main(argv=None) -> int:
     from .. import default_device
     from ..core.scan import Scan
     from ..io import frames as frames_io
+    from ..io.boctree import read_oct
     from ..io.scandir import PointFilter, read_scan_dir
     from ..models.icp import IcpParams
     from ..models.sequence import SequenceRegistration
@@ -161,6 +170,32 @@ def main(argv=None) -> int:
         range_min=args.min_range if args.min_range > 0 else None,
         custom=args.custom_filter,
     )
+    if args.cache_mb > 0:
+        # out-of-core streaming mode (the scanserver role): scans page
+        # through an LRU byte budget; sequential matching only, with the
+        # JAX package's IcpParams (-d, -i, --epsICP; quat)
+        from ..models.streaming import register_streaming
+
+        results = register_streaming(
+            args.dir, format=args.format,
+            params=IcpParams(
+                max_dist_match2=args.dist**2, max_iterations=args.iter,
+                epsilon=args.epsICP,
+            ),
+            point_filter=pf,
+            reduction=(args.reduce, args.octree if args.reduce > 0 else 0),
+            cache_bytes=args.cache_mb << 20,
+            frames_out=args.frames_out or args.dir,
+            start=args.start, end=args.end,
+            device=device,
+        )
+        if not args.quiet:
+            for r in results[1:]:
+                print(
+                    f"scan {r['identifier']}: ITER {r['iterations']} "
+                    f"err {r['error']:.4f}"
+                )
+        return 0
     if args.scans:
         # range-set DSL selection: expand against the directory and
         # narrow [start, end]; the stepped subset is applied after load
@@ -193,6 +228,10 @@ def main(argv=None) -> int:
                 continue
             s = Scan.from_raw(raw, device=str(device))
             s.set_reduction(args.reduce, args.octree if args.reduce > 0 else 0)
+            if args.load_oct:
+                op = os.path.join(args.dir, f"scan{s.identifier}.oct")
+                if os.path.exists(op):
+                    s.load_reduced(read_oct(op))
             if args.continue_processing:
                 # resume from the last .frames pose (ref slam6D.cc:628,
                 # Scan::continueProcessing, basicScan.cc:902-945)
@@ -318,6 +357,16 @@ def main(argv=None) -> int:
     print(f"Matching done in {dt:.0f} milliseconds!!!")
 
     save_frames()
+
+    if args.save_oct:
+        from ..io.boctree import write_oct
+
+        voxel = args.reduce if args.reduce > 0 else 10.0
+        for s in scans:
+            write_oct(
+                os.path.join(out_dir, f"scan{s.identifier}.oct"),
+                s.reduced_local(), voxel,
+            )
 
     if args.exportAllPoints:
         from ..io.writer import write_uos

@@ -92,6 +92,15 @@ class Scan:
         self.reduction_voxel = voxel
         self.reduction_nrpts = nrpts
 
+    def load_reduced(self, points: np.ndarray) -> None:
+        """Take ``points`` [N,3] (local frame) as the reduced points, as
+        ``--loadOct`` does with a saved octree: ``reduced_local()``
+        returns them and never reduces the raw points, and callers see a
+        new ``generation`` and upload them anew to their device."""
+        self._reduced_local = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+        self.channels.pop("normal reduced", None)
+        self.generation += 1
+
     # -- channels ---------------------------------------------------------
     @property
     def xyz(self) -> np.ndarray:

@@ -20,10 +20,12 @@ their fields given as numpy arrays, become the port's
 :func:`corr_cache_from_numpy` rebuilds a ``lum_device.CorrCache`` (slot
 table, relative poses, the resident idx/found rows) so both packages can
 start from one cache state; :func:`lum_params_from`,
-:func:`elch_params_from` and :func:`graph_pipeline_from` map the JAX
+:func:`elch_params_from`, :func:`graph_pipeline_from`,
+:func:`subgraph_params_from` and :func:`srr_params_from` map the JAX
 dataclasses' fields (given as a dict, e.g. ``vars(p)``) onto the port's,
 dropping the fields that only exist for XLA (shape buckets, hashed
-grids, meshes, the segmented loop) and refusing unknown ones.
+grids, meshes, the segmented loop) and refusing unknown ones;
+:func:`line_scan_set_from_numpy` rebuilds an ``srr.LineScanSet``.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from .ops.nn_cell_list import CellListModel
 
 __all__ = [
     "corr_cache_from_numpy", "elch_params_from", "graph_pipeline_from",
-    "lum_params_from", "scans_from_numpy",
+    "line_scan_set_from_numpy", "lum_params_from", "scans_from_numpy",
+    "srr_params_from", "subgraph_params_from",
 ]
 
 # fields of the JAX dataclasses with no counterpart in the port
@@ -82,6 +85,36 @@ def graph_pipeline_from(fields: Mapping, device="cpu"):
         icp = kw["icp_params"]
         kw["icp_params"] = IcpParams(**dict(icp._asdict() if hasattr(icp, "_asdict") else icp))
     return GraphPipeline(device=device, **kw)
+
+
+def subgraph_params_from(fields: Mapping):
+    """The port's ``subgraph.SubgraphParams`` from a JAX one's fields
+    (every field has its counterpart)."""
+    from .models.subgraph import SubgraphParams
+
+    return SubgraphParams(**_carried(fields, ()))
+
+
+def srr_params_from(fields: Mapping):
+    """The port's ``srr.SrrParams`` from a JAX one's fields."""
+    from .models.srr import SrrParams
+
+    return SrrParams(**_carried(fields, ()))
+
+
+def line_scan_set_from_numpy(state: Mapping):
+    """An ``srr.LineScanSet`` in the state of a JAX one: ``points`` [L,P,3],
+    ``masks`` [L,P], ``poses`` and ``poses_org`` [L,4,4] and optionally
+    ``frames`` (list of ([L,4,4], AlgoType int)), as numpy."""
+    from .models.srr import LineScanSet
+
+    return LineScanSet(
+        points=np.array(state["points"], dtype=np.float32),
+        masks=np.array(state["masks"], dtype=bool),
+        poses=np.array(state["poses"], dtype=np.float64),
+        poses_org=np.array(state["poses_org"], dtype=np.float64),
+        frames=[(np.array(m, dtype=np.float64), int(t)) for m, t in state.get("frames", ())],
+    )
 
 
 def corr_cache_from_numpy(state: Mapping, device="cpu"):

@@ -63,9 +63,13 @@ __all__ = [
 # metrics counter: NN calls of the chained covariance engine (one
 # cell-list NN call per link and LUM iteration)
 CHAINED_LINK_CALLS = "chained_lum_link_calls"
-# metrics counter: NN calls of the on-device relaxation (one brute NN
-# call, kernel K1, per link and LUM iteration)
+# metrics counter: brute NN calls of the relaxation (one call, kernel
+# K1, per link and LUM iteration: the on-device relaxation, and the host
+# path where no cell-list spec fits)
 LUM_LINK_CALLS = "lum_link_calls"
+# metrics counter: brute NN calls (kernel K1) of build_clpairs_graph,
+# one per candidate link
+CLPAIRS_LINK_CALLS = "clpairs_link_calls"
 # metrics timers (host clocks; on the device path the solve span ends
 # with the iteration's host read, so it also waits for whatever of the
 # covariance kernels is still queued)
@@ -141,6 +145,7 @@ def build_clpairs_graph(
         torch.as_tensor(masks, device=dev),
         torch.as_tensor(mats, device=dev), cand, max_dist2,
     )
+    metrics.count(CLPAIRS_LINK_CALLS, len(cand))
     return cand[m.cpu().numpy() >= min_pairs]
 
 
@@ -591,6 +596,7 @@ def _do_graph_slam_host(
                 C, CD, _m = link_covariances(
                     points_g, masks_t, links, params.max_dist_match2
                 )
+                metrics.count(LUM_LINK_CALLS, len(links))
                 C, CD = C.cpu().numpy(), CD.cpu().numpy()
         with metrics.time(LUM_SOLVE):
             X = _solve_GX_B(len(scans), links, C, CD, params.dense_solver_max_scans)

@@ -294,9 +294,16 @@ def align_dual(stats: PairStats):
 
 def _helix_rt(ccs):
     """icp6D_HELIX::computeRt (icp6Dhelix.cc:144-204): helix parameters
-    (c; c̄) [6] -> (R, t), in ``ccs``' dtype."""
+    (c; c̄) [6] -> (R, t), in ``ccs``' dtype.
+
+    Where |c| < 1e-12 (exactly aligned pairs: c = 0, and c·c̄ / |c|²
+    would be 0/0) this takes the zero-rotation limit R = I, t = c̄, as
+    ``graphslam_variants._helix_computeRt`` does; the JAX package's ICP
+    ``align_helix`` returns a NaN translation there."""
     c, cs = -ccs[:3], -ccs[3:]
-    clen = torch.sqrt((c * c).sum()) + 1e-30
+    norm = torch.sqrt((c * c).sum())
+    still = norm < 1e-12
+    clen = torch.where(still, torch.ones_like(norm), norm)
     angle = torch.arctan(clen)
     g = c / clen
     half = -angle / 2.0
@@ -307,7 +314,8 @@ def _helix_rt(ccs):
     skew_val = (c * cs).sum() / (clen * clen)
     gs = (cs - c * skew_val) / clen
     ptemp = torch.linalg.cross(g, gs)
-    return R, R @ (-ptemp) + g * (skew_val * angle) + ptemp
+    t = R @ (-ptemp) + g * (skew_val * angle) + ptemp
+    return torch.where(still, _eye(3, R), R), torch.where(still, cs, t)
 
 
 def align_helix(stats: PairStats):

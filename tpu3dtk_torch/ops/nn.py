@@ -36,6 +36,8 @@ __all__ = [
 
 BIG = 3.4e38  # d2 reported for a masked winner (the JAX package's value)
 _TILE_ELEMS = 1 << 24  # [q_tile, M] scores per tile: 64 MB of f32
+# on the CPU a tile that stays in cache: the same rows, ~4x faster
+_CPU_TILE_ELEMS = 1 << 18
 
 
 class BruteModel(NamedTuple):
@@ -112,8 +114,9 @@ def accept(query, qmask, model, mmask, idx, max_dist2):
     return idx, d2, found
 
 
-def _q_tile(M: int) -> int:
-    return max(1, _TILE_ELEMS // max(M, 1))
+def _q_tile(M: int, device) -> int:
+    elems = _CPU_TILE_ELEMS if torch.device(device).type == "cpu" else _TILE_ELEMS
+    return max(1, elems // max(M, 1))
 
 
 def nn_brute(query, qmask, model, mmask, max_dist2):
@@ -134,7 +137,7 @@ def nn_brute(query, qmask, model, mmask, max_dist2):
     qc = query - bm.center
     mc = bm.packed[:, :3].T.contiguous()  # [3, M], masked points at +inf
     idx = torch.empty(Q, dtype=torch.int64, device=query.device)
-    step = _q_tile(mc.shape[1])
+    step = _q_tile(mc.shape[1], query.device)
     for s in range(0, Q, step):
         qt = qc[s : s + step]
         dx = qt[:, 0:1] - mc[0]
@@ -159,7 +162,7 @@ def nn_brute_line(query, qdir, qmask, model, mmask, max_dist2):
     mc = (model - center).T.contiguous()
     minf = torch.where(mmask, 0.0, float("inf")).to(model.dtype)
     idx = torch.empty(Q, dtype=torch.int64, device=query.device)
-    step = _q_tile(model.shape[0])
+    step = _q_tile(model.shape[0], query.device)
     for s in range(0, Q, step):
         qt, dt = qc[s : s + step], qdir[s : s + step]
         dx = qt[:, 0:1] - mc[0]

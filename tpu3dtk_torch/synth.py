@@ -9,6 +9,9 @@ random draws are identical and the pose math is the port's numpy
   ring corridor traversed 1.3 times.
 - :func:`synth_city`: the bremen_city regime, 13 dense terrestrial scans
   of 1M raw points of a city block.
+- :func:`synth_linescans`: line scans of a mobile mapper with linear
+  lateral odometry drift, the construction of
+  ``tests/test_srr.py::_make_linescans`` (for ``models.srr``).
 
 Each returns (locals [n][n_pts,3] f32, true_mats, odo_mats).
 :func:`write_scan_dir` stores such a sequence as a uos scan directory;
@@ -25,8 +28,8 @@ from .core import math3d
 from .io.writer import write_pose, write_uos
 
 __all__ = [
-    "synth_city", "synth_loop", "synth_ring", "write_net_graph",
-    "write_scan_dir",
+    "synth_city", "synth_linescans", "synth_loop", "synth_ring",
+    "write_net_graph", "write_scan_dir",
 ]
 
 
@@ -54,6 +57,43 @@ def write_net_graph(path: str, n_scans: int, links) -> None:
         f.write(f"{int(n_scans)}\n{len(links)}\n")
         for a, b in links:
             f.write(f"{a} {b}\n")
+
+
+def _room_cloud(rng, n=4000, size=1000.0):
+    """Points on the six walls of a box, n // 6 a wall (the construction
+    of ``tests/conftest.py::make_room_cloud``, the same draws)."""
+    n_face = n // 6
+    pts = []
+    for axis in range(3):
+        for side in (0.0, size):
+            p = rng.uniform(0, size, size=(n_face, 3))
+            p[:, axis] = side
+            pts.append(p)
+    return np.concatenate(pts, axis=0)
+
+
+def synth_linescans(n_lines=40, pts_per_line=1500, drift=0.25, seed=42):
+    """Line scans of a mobile mapper: a 30000-point room cloud 800 cm
+    wide (``_room_cloud``) seen from ``n_lines`` poses 5 cm apart along
+    x, each line a random slice of ``pts_per_line`` world points in its
+    local frame; the odometry drifts laterally by ``drift`` cm a line in
+    z (a miscalibrated platform).  With the defaults and
+    ``np.random.default_rng(42)``'s draws, the data of
+    ``tests/test_srr.py::_make_linescans``.  Returns (locals
+    [n_lines][pts_per_line,3] f64, true_mats, odo_mats)."""
+    rng = np.random.default_rng(seed)
+    world = _room_cloud(rng, n=30000, size=800.0)
+    locals_, true_mats, odo_mats = [], [], []
+    acc = np.zeros(3)
+    for i in range(n_lines):
+        pos = np.array([5.0 * i, 0.0, 0.0])
+        T_true = math3d.euler_to_matrix4(pos, np.zeros(3), xp=np)
+        sel = rng.choice(len(world), pts_per_line, replace=False)
+        locals_.append(math3d.transform3(math3d.m4inv(T_true, xp=np), world[sel], xp=np))
+        true_mats.append(T_true)
+        acc = acc + np.array([0.0, 0.0, drift])
+        odo_mats.append(math3d.euler_to_matrix4(pos + acc, np.zeros(3), xp=np))
+    return locals_, np.stack(true_mats), np.stack(odo_mats)
 
 
 def synth_loop(n_scans=60, seed=7, n_pts=6000, density=1.0):
