@@ -119,6 +119,43 @@ exit code and no result line):
    least, line 0 fixed; 60 lines of 500 points on the card and on the CPU
    (the plain path): the same poses.
 
+Slice 7 (plane detection, plane-based registration, the normals tools,
+scan reduction, the searches; no NN call of K1 or K2 is on these paths,
+and each phase shows both launched no time).  Each phase prints its wall
+times and one step under torch.profiler with the kernels that took most
+of its device time.
+
+23. planes — ``torchplanes -p sht`` and ``-p rht`` on bremen scan 0
+   (-r 20 -O 1, a -C file with RhoMax 5000, ThetaNum 360, PhiNum 176;
+   RhoMax 10000 for -p rht): the largest plane is the ground within 1
+   deg and 5 cm, at least 4 planes match a true plane of synth_city
+   within 2 deg and 10 cm; the SHT vote's time a round; RHT on those
+   points and SHT on a synth_loop scan on the card against the CPU (0.05
+   deg, 0.05 cm, inliers 0.5%).
+24. planereg — ``preg6d`` on all 13 bremen scans (-r 20 -O 1) from their
+   true poses with scans 1-12 perturbed by 5 cm and 0.03 deg a Euler
+   angle, detecting its planes in the ~4M condensed points as a user
+   runs it: the SHT's time a round, Gauss-Newton's mean translation
+   error below 0.7x its start, the rotation error not grown; the same at
+   0.3 deg a Euler angle, printed (the plane model splits the ground);
+   AdaDelta, 1500 iterations on one scan moved by (3, -2, 2) cm from its
+   Gauss-Newton pose: the distance halved; ``torchplanereg`` on a 4-scan
+   room directory, card against CPU (0.05 cm / 1e-4).
+25. normals — ``torchnormals -g knn|adaptive|apx|panorama`` on phase
+   17's 24 scans (-r 10 -O 1): ms a scan, the median angle to the
+   corridor's analytic normals (at most 10 deg but for the panorama's,
+   printed only), scan 0 on the card against the CPU (99.9% within 0.5
+   deg; for the panorama, of the points whose window fixes its normal in
+   f32, and again on scan 0 rendered with 150k points).
+26. scan_red — ``torchscan_red -r OCTREE -v 10 --octree 0``, ``-r RANGE``
+   and ``-r INTERPOLATE`` on raw bremen scan 0 (1M points): the card's
+   files byte-identical to the CPU's.
+27. search — ``fixed_range_search`` and ``fixed_range_search_along_dir``
+   (h468 scan 1 against scan 0, r 10 cm, K 64) and 100 segment searches
+   on the card against the CPU: the same counts and found sets, d2
+   within 1e-3 cm² (along a direction plus 2^-20 |m - q|², the f32
+   cancellation of |m - q|² - proj²).
+
 Phase 3 also times a library yardstick for K1: ``torch.cdist(q,
 m).min(dim=1)`` at the first match's shape in both compute modes (no
 mask; a reference point, not a port).  A line before the last is one
@@ -136,6 +173,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -375,7 +413,8 @@ def nn_bound(pairs, nbytes, slots):
 def profile_region(fn):
     """``fn()`` once under torch.profiler: the CUDA runtime's kernel
     launches, the kernels and copies the card ran, their device time and
-    K1's / K2's part (ms), and the wall time of the profiled call (ms)."""
+    K1's / K2's part (ms), the device ms of each kernel name (copies and
+    sets left out), and the wall time of the profiled call (ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -389,6 +428,10 @@ def profile_region(fn):
     ev = prof.events()
     dev = [e for e in ev if e.device_type == DeviceType.CUDA]
     copies = sum(1 for e in dev if e.name.startswith(("Memcpy", "Memset")))
+    by_name = {}
+    for e in dev:
+        if not e.name.startswith(("Memcpy", "Memset")):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
 
     def part_ms(names):
         return sum(e.time_range.elapsed_us() for e in dev
@@ -402,6 +445,7 @@ def profile_region(fn):
         "device_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3,
         "K1": part_ms(K1_KERNELS),
         "K2": part_ms(K2_KERNELS),
+        "by_name": by_name,
     }
 
 
@@ -1459,6 +1503,13 @@ def bremen_phases(dev, params_city):
         chained_match, n=10, label="first bremen match (chained)",
         units=lambda r: chained_match.trips, kernel="K2",
     )
+    # ---- phases 23, 26, 24: planes, scan_red, planereg on the city ------
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_dir = os.path.join(tmp, "scans")
+        synth.write_scan_dir(scan_dir, locals_[:1], odo_mats[:1])  # phase 8's scan 0
+        planes_phase(tmp, scan_dir, np.asarray(true_mats[0]))
+        scan_red_phase(tmp, scan_dir)
+        planereg_phase(tmp, locals_, true_mats)
     # the path gives K2 the unclamped table: the line's numbers are that
     # shape's; the clamped table's device time stays beside them
     return {
@@ -1732,8 +1783,8 @@ def octree_phase(tmp, scan_dir, idents):
 
 
 def dir_phases(locals_, true_mats, odo_mats):
-    """Phases 22 and 19 on phase 17's directory (the first 24 h468
-    scans), written anew.  Returns K1's launches in each."""
+    """Phases 22, 19 and 25 on phase 17's directory (the first 24 h468
+    scans), written anew.  Returns K1's launches in phases 22 and 19."""
     import numpy as np
 
     from tpu3dtk_torch import synth
@@ -1744,6 +1795,7 @@ def dir_phases(locals_, true_mats, odo_mats):
         idents = synth.write_scan_dir(scan_dir, locals_[:n], odo_mats[:n])
         fixed = fixpoint_phase(tmp, scan_dir, idents, np.stack(true_mats[:n]), odo_mats[:n])
         octree = octree_phase(tmp, scan_dir, idents)
+        normals_phase(tmp, scan_dir, idents, [np.asarray(T) for T in true_mats[:n]])
     return {"octree": octree, "fixpoint": fixed}
 
 
@@ -1889,6 +1941,645 @@ def srr_phase():
     )
     check(dt <= 0.5 and dr <= 1e-3, "srr: card and plain path poses disagree")
     return launches
+
+
+# ---- phases 23-27: plane detection, plane-based registration, the
+# normals tools, scan reduction and the range searches (slice 7).  No
+# function on these paths is an NN call of K1 or K2: each phase sets both
+# counts to 0 before its path and checks them after.
+
+# phase 23: the -C file of bin/planes at the bremen scan's scale, as the
+# -p sht run reads it (RhoMax 5000 cm: the scan's radius, rho bins of 20
+# cm).  The -p rht run reads it with RhoMax 10000: RHT's distanceOK gate
+# keeps triples with every side below RhoMax / 4, and at 1250 cm almost
+# no triple of a 50 m city scan passes it (no cell reached 12 votes, on
+# the card and the CPU alike); at 2500 cm the ground and the facades are
+# found
+PLANES_CFG = {
+    "RhoMax": 5000, "MaxDist": 5000, "RhoNum": 500, "ThetaNum": 360, "PhiNum": 176,
+    "MinSizeAllPoints": 2000, "MaxPlanes": 20, "MaxPointPlaneDist": 10,
+}
+PLANES_RHT_RHOMAX = 10000
+# phase 23: the first synth_loop scan that holds 6000 points
+LOOP_SCAN = 15
+# phase 24: the condensed 13-scan city (world frame, up to ~198 m from the
+# origin); scans 1-12 start off their true poses by PREG_OFFSET_CM and a
+# Euler angle each, and preg6d detects its own planes in the condensed
+# cloud at those poses.  The gated run tilts by PREG_ANGLE_DEG: the
+# ground sheets of the scans, 50 m out, then sit within 5000 cm x 0.03
+# deg x sqrt(2) + 5 cm ~ 8.7 cm of each other, inside the 10 cm band of a
+# plane.  At PREG_SPLIT_ANGLE_DEG (0.3) they sit up to ~40 cm apart, the
+# SHT takes several of its 12 planes from the ground, and Gauss-Newton
+# moves scans along the axes the planes leave free; the JAX package does
+# the same on a sparse copy of this sequence
+# (tests/test_torch_preg6d.py::test_preg6d_city_matches_jax).  That run
+# is printed, not gated
+PREG_HOUGH = dict(rho_max=20000.0, n_rho=1000, min_inliers=5000, max_planes=12, dist_tol=10.0)
+PREG_OFFSET_CM = 5.0
+PREG_ANGLE_DEG = 0.03
+PREG_SPLIT_ANGLE_DEG = 0.3
+ADADELTA_SCAN = 6
+ADADELTA_OFFSET = (3.0, -2.0, 2.0)
+PLANEREG_ROOM_SCANS = 4
+PLANEREG_ROOM_PTS = 5000
+# phase 25: the closed-form f32 eigenvector of a window's covariance lies
+# within u/g^2 + 1e-3 rad of the exact one (u = 2^-24, g = (l1 - l0)/l2 >=
+# 1e-3: tests/test_torch_normals_tools.py::test_closed_form_eigenvector_
+# error_bound), so the card's and the CPU's panorama normals agree to 0.5
+# deg wherever g >= sqrt(u / (0.5 deg / 2 - 1e-3)) = 4.2e-3; below it the
+# window does not fix its normal in f32 (one or two points, nearly
+# collinear points, points metres apart).  The gate counts those points
+PANO_GAP = math.sqrt(2.0**-24 / (math.radians(0.5) / 2 - 1e-3))
+# phase 25: h468 scan 0 rendered dense enough for the panorama's 720 x 240
+# image (~0.9 points a pixel)
+PANO_DENSE_PTS = 150_000
+# phase 27
+SEARCH_RADIUS = 10.0
+SEARCH_K = 64
+SEARCH_SEGMENTS = 100
+
+
+def k12_zero():
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+
+    nn_cuda.nn_brute_kernel.launches = 0
+    nn_cell_list_cuda.cell_list_rows_kernel.launches = 0
+
+
+def k12_check(what):
+    """K1 and K2 launched no time on the path since :func:`k12_zero`."""
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+
+    k1 = nn_cuda.nn_brute_kernel.launches
+    k2 = nn_cell_list_cuda.cell_list_rows_kernel.launches
+    check(k1 == 0 and k2 == 0, f"{what}: K1 launched {k1} times, K2 {k2}: no NN call of theirs "
+          "is on this path")
+    return f"K1 launches {k1}, K2 launches {k2}"
+
+
+def profile_top(n, name, label, fn):
+    """``fn()`` once more under :func:`profile_region`, printed: its wall
+    time, the kernels' device time and the three kernels that took most
+    of it (by name, so the line shows the step ran on the card).  Returns
+    the kernels' device ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    p = profile_region(fn)
+    dev_ms = sum(p["by_name"].values())
+    check(dev_ms > 0, f"{label}: the profiler saw no kernel on the card")
+    top = sorted(p["by_name"].items(), key=lambda kv: -kv[1])[:3]
+    names = "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top)
+    phase(n, name, f"{label} under torch.profiler: wall {p['wall_ms']:.2f} ms, device {dev_ms:.3f} ms "
+          f"in {len(p['by_name'])} kernels (busy {100 * dev_ms / p['wall_ms']:.1f}%); top: {names}")
+    return dev_ms
+
+
+def _angle_deg(a, b):
+    import numpy as np
+
+    return float(np.degrees(np.arccos(np.clip(abs(float(np.dot(a, b))), -1.0, 1.0))))
+
+
+def _read_planes(out):
+    """The ``plane###.n`` files listed in ``out``/planes.list."""
+    import numpy as np
+
+    from tpu3dtk_torch.models.shapes import Plane
+
+    planes = []
+    with open(os.path.join(out, "planes.list")) as lst:
+        for path in lst.read().split():
+            with open(path) as f:
+                ln = f.read().split("\n")
+            planes.append(Plane(normal=np.array(ln[0].split(), float), rho=float(ln[1]),
+                                center=np.array(ln[2].split(), float), n_inliers=int(ln[3])))
+    return planes
+
+
+def true_planes_in(T):
+    """synth_city's planes in the frame of a scan at pose T: n_l = Rᵀn,
+    d_l = d − n·t."""
+    from tpu3dtk_torch import synth
+
+    return [(T[:3, :3].T @ n, d - float(n @ T[:3, 3])) for n, d in synth.city_planes()]
+
+
+def match_true(plane, truth, deg, cm):
+    """Index of the true plane within ``deg`` and ``cm`` of ``plane``
+    (either orientation), or None; with the angle and rho errors."""
+    import numpy as np
+
+    best = None
+    for k, (n, d) in enumerate(truth):
+        s = 1.0 if float(np.dot(plane.normal, n)) >= 0 else -1.0
+        ang, drho = _angle_deg(plane.normal, n), abs(plane.rho - s * d)
+        if ang <= deg and drho <= cm and (best is None or drho < best[2]):
+            best = (k, ang, drho)
+    return best
+
+
+def planes_agree(a, b, deg, cm, share):
+    """Two plane lists agree: the same count; normals, rho and inlier
+    counts within the bounds.  Returns the largest differences."""
+    check(len(a) == len(b), f"{len(a)} planes against {len(b)}")
+    worst = [0.0, 0.0, 0.0]
+    for p, q in zip(a, b):
+        worst = [max(worst[0], _angle_deg(p.normal, q.normal)), max(worst[1], abs(p.rho - q.rho)),
+                 max(worst[2], abs(p.n_inliers - q.n_inliers) / max(q.n_inliers, 1))]
+    check(worst[0] <= deg and worst[1] <= cm and worst[2] <= share,
+          f"planes differ by {worst[0]:.4f} deg, {worst[1]:.4f} cm, inliers {worst[2]:.5f}")
+    return worst
+
+
+def planes_phase(tmp, scan_dir, true0):
+    """Phase 23: ``torchplanes -p sht`` and ``-p rht`` on bremen scan 0
+    (-r 20 -O 1, the -C files above); RHT on those points and SHT on a
+    synth_loop scan on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.cli import planes as planes_cli
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io.hough_config import hough_params_from_config, load_hough_config
+    from tpu3dtk_torch.io.scandir import PointFilter, read_scan_dir
+    from tpu3dtk_torch.models import shapes
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          torch.get_float32_matmul_precision() == "highest", "TF32 is on: f32 matmuls would round")
+    cfgs = {}
+    for algo, rho_max in (("sht", PLANES_CFG["RhoMax"]), ("rht", PLANES_RHT_RHOMAX)):
+        cfgs[algo] = os.path.join(tmp, f"hough_{algo}.cfg")
+        with open(cfgs[algo], "w") as f:
+            f.write("".join(f"{k} {v}\n" for k, v in {**PLANES_CFG, "RhoMax": rho_max}.items()))
+    truth = true_planes_in(true0)
+    k12_zero()
+    for algo in ("sht", "rht"):
+        out = os.path.join(tmp, f"planes_{algo}")
+        metrics.reset()
+        rc, _text, wall = _cli(planes_cli, [scan_dir, "-f", "uos", "-r", str(CITY_VOXEL), "-O", "1",
+                                          "-C", cfgs[algo], "-p", algo, "-o", out, "--device", CARD])
+        check(rc == 0, f"torchplanes -p {algo} returned {rc}")
+        found = _read_planes(out)
+        check(len(found) >= 4, f"-p {algo}: {len(found)} planes")
+        vote = metrics.timers.get(shapes.HOUGH_VOTE)
+        per_round = (f"; SHT vote {vote.count} rounds, {vote.average * 1e3:.1f} ms a round"
+                     if vote is not None and vote.count else "")
+        phase(23, "planes", f"torchplanes -p {algo}: wall {wall:.2f} s (scan read as text, "
+              f"reduced on the card), {len(found)} planes{per_round}")
+        matched = 0
+        for k, p in enumerate(found):
+            m = match_true(p, truth, 2.0, 10.0)
+            matched += m is not None
+            where = (f"true plane {m[0]} (n={np.round(truth[m[0]][0], 3).tolist()}, "
+                     f"d={truth[m[0]][1]:.1f}) off by {m[1]:.3f} deg, {m[2]:.2f} cm"
+                     if m else "no true plane within 2 deg and 10 cm")
+            phase(23, "planes", f"  -p {algo} plane {k}: n={np.round(p.normal, 4).tolist()} "
+                  f"rho={p.rho:.2f} inliers={p.n_inliers}: {where}")
+        big = max(found, key=lambda p: p.n_inliers)
+        g = match_true(big, truth[:1], 1.0, 5.0)
+        check(g is not None, f"-p {algo}: the largest plane is not the ground within 1 deg and 5 cm")
+        check(matched >= 4, f"-p {algo}: {matched} planes match a true plane within 2 deg and 10 cm")
+        phase(23, "planes", f"-p {algo}: largest plane = the ground (|rho| "
+              f"{abs(truth[0][1]):.1f} cm) off by {g[1]:.4f} deg, {g[2]:.3f} cm; "
+              f"{matched} of {len(found)} planes match a true plane")
+    hp = hough_params_from_config(load_hough_config(cfgs["rht"]))
+    raw = next(iter(read_scan_dir(scan_dir, format="uos", start=0, end=0,
+                                  point_filter=PointFilter(range_max=PLANES_CFG["MaxDist"]))))
+    s = Scan.from_raw(raw, device=CARD)
+    s.set_reduction(CITY_VOXEL, 1)
+    pts = s.reduced_local()
+    runs = {}
+    for dev in (CARD, "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = (shapes.detect_planes_rht(pts, hp, device=dev), time.perf_counter() - t0)
+    worst = planes_agree(runs[CARD][0], runs["cpu"][0], 0.05, 0.05, 0.005)
+    phase(23, "planes", f"RHT on the {len(pts)} reduced points: card {runs[CARD][1]:.2f} s, CPU "
+          f"{runs['cpu'][1]:.2f} s, {len(runs[CARD][0])} planes each; largest differences "
+          f"{worst[0]:.5f} deg, {worst[1]:.5f} cm, inliers {100 * worst[2]:.4f}%")
+    pts_t = torch.as_tensor(pts, device=CARD).to(torch.float32)
+    dirs = torch.as_tensor(shapes._directions(hp.n_theta, hp.n_phi).astype(np.float32), device=CARD)
+    hp = hough_params_from_config(load_hough_config(cfgs["sht"]))
+    profile_top(23, "planes", f"one SHT vote of {len(pts)} points x {dirs.shape[0]} directions",
+                lambda: shapes._vote(pts_t, dirs, hp.n_rho, hp.rho_max))
+    loop = synth.synth_loop()[0][LOOP_SCAN]
+    hp_loop = shapes.HoughParams(rho_max=2000.0, n_rho=200, min_inliers=200, max_planes=8)
+    for dev in (CARD, "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = (shapes.detect_planes(loop, hp_loop, device=dev), time.perf_counter() - t0)
+    worst = planes_agree(runs[CARD][0], runs["cpu"][0], 0.05, 0.05, 0.005)
+    phase(23, "planes", f"SHT on a synth_loop scan ({len(loop)} points): card {runs[CARD][1]:.2f} "
+          f"s, CPU {runs['cpu'][1]:.2f} s, {len(runs[CARD][0])} planes each; largest differences "
+          f"{worst[0]:.5f} deg, {worst[1]:.5f} cm, inliers {100 * worst[2]:.4f}%; "
+          + k12_check("planes"))
+
+
+def _rot_deg(R, R0):
+    import numpy as np
+
+    return float(np.degrees(np.arccos(np.clip((np.trace(R0.T @ R) - 1.0) / 2.0, -1.0, 1.0))))
+
+
+def _errors(scans, truth):
+    import numpy as np
+
+    t = np.array([np.linalg.norm(s.transMat[:3, 3] - T[:3, 3]) for s, T in zip(scans, truth)])
+    r = np.array([_rot_deg(s.transMat[:3, :3], T[:3, :3]) for s, T in zip(scans, truth)])
+    return t, r
+
+
+def planereg_phase(tmp, city_locals, city_true):
+    """Phase 24: preg6d (Gauss-Newton) on all 13 bremen scans from
+    perturbed true poses, detecting its own planes in the condensed
+    cloud (PREG_ANGLE_DEG gated, PREG_SPLIT_ANGLE_DEG printed); AdaDelta
+    on one scan against the gated run's planes; ``torchplanereg`` on a
+    room directory on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.cli import preg6d as preg_cli
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io.frames import AlgoType
+    from tpu3dtk_torch.models import preg6d as preg
+    from tpu3dtk_torch.models import shapes
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    truth = [np.asarray(T, np.float64) for T in city_true]
+    world = synth.city_planes()
+    hough = shapes.HoughParams(**PREG_HOUGH)
+    params = preg.PregParams(eps_hesse=25.0, iterations=50)
+
+    def city_scan(k, T):
+        s = Scan.from_points(city_locals[k], f"{k:03d}", np.asarray(T))
+        s.device = CARD
+        s.set_reduction(CITY_VOXEL, 1)
+        return s
+
+    def register(angle_deg):
+        """preg6d on the sequence perturbed by ``angle_deg``, as a user
+        runs it (no plane model given); returns (scans, planes found)."""
+        rng = np.random.default_rng(24)
+        starts = [truth[0]]
+        for T in truth[1:]:
+            dt = rng.normal(size=3)
+            dt *= PREG_OFFSET_CM / np.linalg.norm(dt)
+            ang = np.deg2rad(angle_deg) * rng.choice([-1.0, 1.0], 3)
+            starts.append(T @ math3d.euler_to_matrix4(dt, ang))
+        t0 = time.perf_counter()
+        scans = [city_scan(k, T) for k, T in enumerate(starts)]
+        n_pts = sum(len(s.reduced_local()) for s in scans)
+        red_s = time.perf_counter() - t0
+        t_err0, r_err0 = _errors(scans[1:], truth[1:])
+        found = []
+        detect = preg.detect_planes
+
+        def recording_detect(*a, **k):
+            found.extend(detect(*a, **k))
+            return found
+
+        metrics.reset()
+        preg.detect_planes = recording_detect
+        try:
+            t0 = time.perf_counter()
+            infos = preg.preg6d(scans, params=params, hough=hough, device=CARD)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            preg.detect_planes = detect
+        vote = metrics.timers[shapes.HOUGH_VOTE]
+        t_err, r_err = _errors(scans[1:], truth[1:])
+        check(all(s.frames[-1][1] == int(AlgoType.ICP) for s in scans), "preg6d frames not ICP-tagged")
+        tag = f"{angle_deg} deg"
+        phase(24, "planereg", f"[{tag}] 13 bremen scans reduced on the card in {red_s:.1f} s; preg6d "
+              f"(SHT on the condensed {n_pts} points, then Gauss-Newton) {wall:.2f} s: {len(found)} "
+              f"planes, {vote.count} SHT rounds, vote {vote.average * 1e3:.1f} ms a round "
+              f"({vote.total:.2f} s in all)")
+        for k, p in enumerate(found):
+            m = match_true(p, world, 2.0, 10.0)
+            phase(24, "planereg", f"[{tag}]   plane {k}: n={np.round(p.normal, 4).tolist()} "
+                  f"rho={p.rho:.2f} inliers={p.n_inliers}" + (
+                      f": true plane {m[0]} off by {m[1]:.3f} deg, {m[2]:.2f} cm" if m else ""))
+        phase(24, "planereg", f"[{tag}] Gauss-Newton iterations {[i['iterations'] for i in infos]}; "
+              f"associated {[i['associated'] for i in infos]}")
+        phase(24, "planereg", f"[{tag}] scans 1-12: mean translation error {t_err0.mean():.4f} -> "
+              f"{t_err.mean():.4f} cm (max {t_err.max():.4f}), mean rotation error "
+              f"{r_err0.mean():.5f} -> {r_err.mean():.5f} deg; scan 0 moved "
+              f"{np.linalg.norm(scans[0].transMat[:3, 3] - truth[0][:3, 3]):.4f} cm")
+        return scans, found, (t_err0, t_err, r_err0, r_err)
+
+    k12_zero()
+    scans, planes, (t_err0, t_err, r_err0, r_err) = register(PREG_ANGLE_DEG)
+    check(len(planes) >= 4, f"{len(planes)} planes in the condensed city")
+    check(t_err.mean() < 0.7 * t_err0.mean(), "preg6d: the mean translation error did not fall "
+          "below 0.7x its start")
+    check(r_err.mean() <= r_err0.mean(), "preg6d: the mean rotation error grew")
+    pn, pd = (torch.as_tensor(a, device=CARD) for a in preg._plane_arrays(planes))
+    reduced = [s.reduced_local() for s in scans]
+    pts_t = torch.as_tensor(reduced[1].astype(np.float32), device=CARD)
+    mask = torch.ones(len(pts_t), dtype=torch.bool, device=CARD)
+    T1 = torch.as_tensor(scans[1].transMatOrg.astype(np.float32), device=CARD)
+    profile_top(24, "planereg", f"one Gauss-Newton registration of scan 1 ({len(pts_t)} points, "
+                f"{len(planes)} planes)", lambda: preg.plane_register(
+                    pts_t, mask, pn, pd, T1, 25.0, 1e-6, iterations=50))
+    register(PREG_SPLIT_ANGLE_DEG)
+
+    # AdaDelta against the gated run's planes, from the pose Gauss-Newton
+    # reached for the scan (the minimum of that plane model's energy)
+    # moved by ADADELTA_OFFSET
+    k = ADADELTA_SCAN
+    G = np.asarray(scans[k].transMat, np.float64)
+    Ta = G @ math3d.euler_to_matrix4(np.asarray(ADADELTA_OFFSET), np.zeros(3))
+    one = [city_scan(k, Ta)]
+    one[0]._reduced_local = reduced[k]
+    e0 = float(np.linalg.norm(Ta[:3, 3] - G[:3, 3]))
+    t0 = time.perf_counter()
+    preg.preg6d(one, planes=planes, params=preg.PregParams(
+        eps_hesse=25.0, optimizer="adadelta", iterations=1500), device=CARD)
+    torch.cuda.synchronize()
+    ada_s = time.perf_counter() - t0
+    e1 = float(np.linalg.norm(one[0].transMat[:3, 3] - G[:3, 3]))
+    phase(24, "planereg", f"AdaDelta, scan {k} ({len(reduced[k])} points) moved by {ADADELTA_OFFSET} "
+          f"cm from its Gauss-Newton pose, 1500 iterations: {ada_s:.2f} s, {ada_s / 1.5:.3f} ms an "
+          f"iteration; distance to the Gauss-Newton pose {e0:.4f} -> {e1:.4f} cm; to the true pose "
+          f"{np.linalg.norm(Ta[:3, 3] - truth[k][:3, 3]):.4f} -> "
+          f"{np.linalg.norm(one[0].transMat[:3, 3] - truth[k][:3, 3]):.4f} cm")
+    check(e1 < 0.5 * e0, f"AdaDelta: {e1:.4f} cm from the minimum is not below half its start {e0:.4f}")
+    pk = torch.as_tensor(reduced[k].astype(np.float32), device=CARD)
+    profile_top(24, "planereg", "20 AdaDelta iterations", lambda: preg.plane_register(
+        pk, torch.ones(len(pk), dtype=torch.bool, device=CARD), pn, pd,
+        torch.as_tensor(Ta.astype(np.float32), device=CARD), 25.0, 1e-6,
+        iterations=20, optimizer="adadelta"))
+
+    # the CLI: a room directory, perturbed registered poses in .frames
+    rng = np.random.default_rng(241)
+    room = synth._room_cloud(rng, n=60000, size=800.0)
+    room_true, room_locals = [], []
+    for k in range(PLANEREG_ROOM_SCANS):
+        T = math3d.euler_to_matrix4(np.array([300.0 + 60 * k, 250.0, 350.0 + 30 * k]),
+                                    np.array([0.0, 0.4 * k, 0.0]))
+        sel = rng.choice(len(room), PLANEREG_ROOM_PTS, replace=False)
+        Ti = np.linalg.inv(T)
+        room_locals.append(room[sel] @ Ti[:3, :3].T + Ti[:3, 3]
+                           + rng.normal(0, 0.5, (PLANEREG_ROOM_PTS, 3)))
+        room_true.append(T)
+    room_dir = os.path.join(tmp, "room")
+    idents = synth.write_scan_dir(room_dir, room_locals, room_true)
+    for k, ident in enumerate(idents):
+        P = math3d.euler_to_matrix4(rng.normal(0, 3.0, 3) * (k > 0),
+                                    np.deg2rad(rng.normal(0, 0.3, 3)) * (k > 0))
+        frames_io.write_frames(frames_io.frames_path(room_dir, ident), (room_true[k] @ P)[None], [2])
+    poses = {}
+    for k, dev in enumerate((CARD, "cpu")):
+        out = os.path.join(tmp, f"room_{k}")
+        os.makedirs(out)
+        rc, _text, wall = _cli(preg_cli, [room_dir, "--frames-out", out, "-q", "--device", dev])
+        check(rc == 0, f"torchplanereg --device {dev} returned {rc}")
+        fr = [frames_io.read_frames(frames_io.frames_path(out, i)) for i in idents]
+        check(all(list(t) == [int(AlgoType.ICP)] for _m, t in fr),
+              f"torchplanereg --device {dev}: frames not ICP-tagged")
+        poses[dev] = (np.stack([m[-1] for m, _t in fr]), wall)
+    dt = float(np.abs(poses[CARD][0][:, :3, 3] - poses["cpu"][0][:, :3, 3]).max())
+    dr = float(np.abs(poses[CARD][0][:, :3, :3] - poses["cpu"][0][:, :3, :3]).max())
+    phase(24, "planereg", f"torchplanereg (default flags) on {PLANEREG_ROOM_SCANS} room scans of "
+          f"{PLANEREG_ROOM_PTS} points: card {poses[CARD][1]:.2f} s, CPU {poses['cpu'][1]:.2f} s; "
+          f"poses {dt:.5f} cm / {dr:.2e} apart; " + k12_check("planereg"))
+    check(dt <= 0.05 and dr <= 1e-4, "torchplanereg: card and CPU poses disagree")
+
+
+def panorama_gaps(points):
+    """Per point of [N,3]: the relative eigengap (l1 - l0) / l2 of the f32
+    covariance of its 720 x 240 panorama window, the estimator's own."""
+    import numpy as np
+
+    from tpu3dtk_torch.ops import normals as nrm
+    from tpu3dtk_torch.ops.panorama import PanoramaParams, point_pixels
+
+    pts = np.asarray(points, np.float64)
+    params = PanoramaParams(method="equirectangular", width=720, height=240)
+    cov = nrm._window_covariances(pts, params).astype(np.float32).astype(np.float64)
+    lam = np.linalg.eigvalsh(cov)
+    gap = (lam[..., 1] - lam[..., 0]) / np.maximum(lam[..., 2], 1e-30)
+    ui, vi, _valid = point_pixels(pts, params)
+    return gap[vi, ui]
+
+
+def _ring_angles(normals_local, points_local, T):
+    """Angles (deg) of local normals to the corridor's analytic normals,
+    at the points on a wall, the floor or the ceiling."""
+    import numpy as np
+
+    from tpu3dtk_torch import synth
+
+    ref, on = synth.ring_normals(points_local @ T[:3, :3].T + T[:3, 3])
+    c = np.abs(((normals_local @ T[:3, :3].T)[on] * ref[on]).sum(1))
+    return np.degrees(np.arccos(np.clip(c, 0.0, 1.0)))
+
+
+def normals_phase(tmp, scan_dir, idents, true_mats):
+    """Phase 25: ``torchnormals -g knn|adaptive|apx|panorama`` on phase
+    17's 24 h468 scans (-r 10 -O 1): the median angle to the corridor's
+    analytic normals, and scan 0 on the card against the CPU; the
+    panorama estimator also on scan 0 rendered with PANO_DENSE_PTS
+    points."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.cli import calc_normals
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io.scandir import read_scan_dir
+    from tpu3dtk_torch.ops import normals as nrm
+
+    k12_zero()
+    raw0 = next(iter(read_scan_dir(scan_dir, format="uos", start=0, end=0)))
+    s0 = Scan.from_raw(raw0, device=CARD)
+    s0.set_reduction(10.0, 1)
+    p0 = s0.reduced_local().astype(np.float32)
+    t0 = torch.as_tensor(p0, device=CARD)
+    m0 = torch.ones(len(p0), dtype=torch.bool, device=CARD)
+    vp = torch.zeros(3, device=CARD)
+    calls = {
+        "knn": lambda: nrm.estimate_normals_knn(t0, m0, vp),
+        "adaptive": lambda: nrm.estimate_normals_adaptive_knn(t0, m0, vp),
+        "apx": lambda: nrm.estimate_normals_apx_knn(t0, m0, vp),
+        "panorama": lambda: nrm.estimate_normals_panorama(p0, device=CARD),
+    }
+    for g in ("knn", "adaptive", "apx", "panorama"):
+        out = os.path.join(tmp, f"normals_{g}")
+        rc, _text, wall = _cli(calc_normals, [scan_dir, "-f", "uos", "-r", "10", "-O", "1",
+                                              "-g", g, "-o", out, "-q", "--device", CARD])
+        check(rc == 0, f"torchnormals -g {g} returned {rc}")
+        angles = []
+        for ident, T in zip(idents, true_mats):
+            xyzn = np.loadtxt(os.path.join(out, f"scan{ident}.3d"))
+            angles.append(_ring_angles(xyzn[:, 3:], xyzn[:, :3], T))
+        med = float(np.median(np.concatenate(angles)))
+        calls[g]()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            calls[g]()
+        torch.cuda.synchronize()
+        est_ms = (time.perf_counter() - t1) / 3 * 1e3
+        rc, _text, cpu_s = _cli(calc_normals, [scan_dir, "-f", "uos", "-r", "10", "-O", "1",
+                                               "-g", g, "-o", out + "_cpu", "-s", "0", "-e", "0",
+                                               "-q", "--device", "cpu"])
+        check(rc == 0, f"torchnormals -g {g} --device cpu returned {rc}")
+        a = np.loadtxt(os.path.join(out, f"scan{idents[0]}.3d"))
+        b = np.loadtxt(os.path.join(out + "_cpu", f"scan{idents[0]}.3d"))
+        check(np.array_equal(a[:, :3], b[:, :3]), f"-g {g}: card and CPU reduced other points")
+        cos = np.clip((a[:, 3:] * b[:, 3:]).sum(1), -1.0, 1.0)
+        close = np.degrees(np.arccos(cos)) <= 0.5
+        agree = float(close.mean())
+        rows = np.ones(len(a), bool)
+        if g == "panorama":
+            rows = panorama_gaps(a[:, :3]) >= PANO_GAP
+        agree_r = float(close[rows].mean())
+        phase(25, "normals", f"-g {g}: {len(idents)} scans in {wall:.2f} s ({wall / len(idents) * 1e3:.1f} "
+              f"ms a scan with text I/O; the estimator alone {est_ms:.2f} ms on scan 0's {len(p0)} "
+              f"points); median angle to the corridor's normals {med:.3f} deg; scan 0 card vs CPU "
+              f"({cpu_s:.2f} s): {100 * agree:.3f}% within 0.5 deg"
+              + (f", {100 * agree_r:.3f}% of the {int(rows.sum())} points whose window fixes its "
+                 f"normal in f32 (eigengap >= {PANO_GAP:.2e})" if g == "panorama" else ""))
+        if g != "panorama":
+            check(med <= 10.0, f"-g {g}: median angle {med:.3f} deg > 10")
+        check(agree_r >= 0.999, f"-g {g}: {100 * agree_r:.3f}% of scan 0's normals agree with the "
+              "CPU's")
+    dense_l, dense_t, _odo = synth.synth_ring(n_pts=PANO_DENSE_PTS, seed=SEED, n_render=1)
+    dense, T = dense_l[0], np.asarray(dense_t[0])
+    t1 = time.perf_counter()
+    n_card = nrm.estimate_normals_panorama(dense, device=CARD)
+    card_s = time.perf_counter() - t1
+    n_cpu = nrm.estimate_normals_panorama(dense, device="cpu")
+    close = np.degrees(np.arccos(np.clip((n_card * n_cpu).sum(1), -1.0, 1.0))) <= 0.5
+    rows = panorama_gaps(dense) >= PANO_GAP
+    med = float(np.median(_ring_angles(n_card, dense.astype(np.float64), T)))
+    phase(25, "normals", f"-g panorama on h468 scan 0 rendered with {len(dense)} points: {card_s:.2f} s; "
+          f"median angle to the corridor's normals {med:.3f} deg; card vs CPU {100 * close.mean():.3f}% "
+          f"within 0.5 deg, {100 * close[rows].mean():.3f}% of the {int(rows.sum())} points "
+          f"({100 * rows.mean():.2f}%) whose window fixes its normal in f32")
+    check(close[rows].mean() >= 0.999, f"dense panorama: {100 * close[rows].mean():.3f}% of the "
+          "normals agree with the CPU's")
+    profile_top(25, "normals", f"one adaptive estimate of scan 0 ({len(p0)} points)",
+                 calls["adaptive"])
+    phase(25, "normals", k12_check("normals"))
+
+
+def scan_red_phase(tmp, scan_dir):
+    """Phase 26: ``torchscan_red`` on raw bremen scan 0: OCTREE (voxel
+    centres), RANGE and INTERPOLATE, each on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.cli import scan_red
+    from tpu3dtk_torch.io.scandir import read_scan_dir
+    from tpu3dtk_torch.ops import reduction
+
+    k12_zero()
+    modes = {"OCTREE": ["-v", "10", "--octree", "0"], "RANGE": [], "INTERPOLATE": []}
+    for mode, extra in modes.items():
+        files, walls = {}, {}
+        for dev in (CARD, "cpu"):
+            out = os.path.join(tmp, f"red_{mode}_{dev}")
+            rc, text, walls[dev] = _cli(scan_red, [scan_dir, "-s", "0", "-e", "0", "-f", "uos",
+                                                   "-r", mode, *extra, "-o", out, "--device", dev])
+            check(rc == 0, f"torchscan_red -r {mode} --device {dev} returned {rc}")
+            with open(os.path.join(out, "scan000.3d"), "rb") as f:
+                files[dev] = f.read()
+            counts = re.search(r"scan000: (\d+) -> (\d+) points", text).groups()
+        check(files[CARD] == files["cpu"], f"-r {mode}: the card's file differs from the CPU's")
+        phase(26, "scan_red", f"-r {mode}: {counts[0]} -> {counts[1]} points; card {walls[CARD]:.2f} "
+              f"s, CPU {walls['cpu']:.2f} s (text read and write included); files byte-identical")
+    raw = next(iter(read_scan_dir(scan_dir, format="uos", start=0, end=0)))
+    xyz = raw.xyz.astype(np.float32)
+    profile_top(26, "scan_red", f"one OCTREE reduction of {len(xyz)} points on the card",
+                 lambda: reduction.reduce_scan(xyz, 10.0, 0, device=CARD))
+    torch.cuda.synchronize()
+    phase(26, "scan_red", "RANGE and INTERPOLATE are host numpy in both packages; "
+          + k12_check("scan_red"))
+
+
+def search_phase(reduced, true_mats):
+    """Phase 27: the range and segment searches on h468 scans 0 and 1
+    (reduced), on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.ops import normals as nrm
+    from tpu3dtk_torch.ops import search
+
+    k12_zero()
+    g = [(s.reduced_local() @ np.asarray(T)[:3, :3].T + np.asarray(T)[:3, 3]).astype(np.float32)
+         for s, T in zip(reduced[:2], true_mats[:2])]
+    rng = np.random.default_rng(27)
+    n1 = nrm.estimate_normals_knn(g[1], np.ones(len(g[1]), bool), np.asarray(true_mats[1])[:3, 3],
+                                  device=CARD).cpu().numpy()
+    p1 = g[0][rng.integers(0, len(g[0]), SEARCH_SEGMENTS)]
+    d = rng.normal(size=(SEARCH_SEGMENTS, 3))
+    p2 = (p1 + 200.0 * d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    md2 = SEARCH_RADIUS**2
+    res, ms = {}, {}
+    for dev in (CARD, "cpu"):
+        m, q = (torch.as_tensor(a, device=dev) for a in g)
+        qm = torch.ones(len(q), dtype=torch.bool, device=dev)
+        mm = torch.ones(len(m), dtype=torch.bool, device=dev)
+        qd = torch.as_tensor(n1, device=dev)
+        a1, a2 = torch.as_tensor(p1, device=dev), torch.as_tensor(p2, device=dev)
+        calls = {
+            "range": lambda: search.fixed_range_search(q, qm, m, mm, md2, K=SEARCH_K),
+            "along": lambda: search.fixed_range_search_along_dir(q, qd, qm, m, mm, md2, K=SEARCH_K),
+            "segments": lambda: [
+                (*search.segment_search_1nn(a1[i], a2[i], m, mm, md2),
+                 search.segment_search_all(a1[i], a2[i], m, mm, md2))
+                for i in range(SEARCH_SEGMENTS)],
+        }
+        res[dev] = {}
+        for name, fn in calls.items():
+            out = fn()
+            if dev == "cpu":
+                t0 = time.perf_counter()
+                fn()
+                ms[(dev, name)] = (time.perf_counter() - t0) * 1e3
+            else:
+                ms[(dev, name)] = cuda_ms(fn, reps=5, warmup=1)
+            if name == "segments":
+                res[dev][name] = [tuple(x.cpu().numpy() for x in r) for r in out]
+            else:
+                res[dev][name] = tuple(x.cpu().numpy() for x in out)
+    sets = lambda idx, f: [set(r[k].tolist()) for r, k in zip(idx, f)]  # noqa: E731
+    for name in ("range", "along"):
+        (ci, cd, cf, cc), (pi, pd, pf, pc) = res[CARD][name], res["cpu"][name]
+        check(np.array_equal(cc, pc), f"{name}: counts differ between the card and the CPU")
+        check(sets(ci, cf) == sets(pi, pf), f"{name}: found sets differ between the card and the CPU")
+        tol = 1e-3
+        if name == "along":  # |m − q|² − proj² cancels in f32: a few ulps of |m − q|²
+            tol = tol + 2.0**-20 * ((g[0][ci] - g[1][:, None]) ** 2).sum(-1)
+        err = np.abs(np.where(cf, cd - pd, 0.0))
+        check(bool((err <= tol).all()), f"{name}: d2 differs by up to {err.max():.3e}")
+        phase(27, "search", f"{'fixed_range_search' if name == 'range' else 'fixed_range_search_along_dir'}"
+              f" (scan 1 {len(g[1])} against scan 0 {len(g[0])}, r {SEARCH_RADIUS} cm, K {SEARCH_K}): "
+              f"card {ms[(CARD, name)]:.3f} ms, CPU {ms[('cpu', name)]:.1f} ms; found {int(cc.sum())}, "
+              f"rows at K {int((cc == SEARCH_K).sum())}; card = CPU (counts, sets), d2 within "
+              f"{err.max():.2e}")
+    for (ci, cd, cf, call), (pi, pd, pf, pall) in zip(res[CARD]["segments"], res["cpu"]["segments"]):
+        check(int(ci) == int(pi) and bool(cf) == bool(pf) and abs(float(cd) - float(pd)) <= 1e-3
+              and np.array_equal(call, pall), "segment searches differ between the card and the CPU")
+    found = sum(int(a[3].sum()) for a in res[CARD]["segments"])
+    phase(27, "search", f"{SEARCH_SEGMENTS} segments of 200 cm: 1nn + all, card "
+          f"{ms[(CARD, 'segments')]:.2f} ms, CPU {ms[('cpu', 'segments')]:.1f} ms; {found} points "
+          f"within {SEARCH_RADIUS} cm; card = CPU")
+    m, q = (torch.as_tensor(a, device=CARD) for a in g)
+    ones = torch.ones(len(q), dtype=torch.bool, device=CARD)
+    onem = torch.ones(len(m), dtype=torch.bool, device=CARD)
+    profile_top(27, "search", "one fixed_range_search", lambda: search.fixed_range_search(
+        q, ones, m, onem, md2, K=SEARCH_K))
+    phase(27, "search", k12_check("search"))
 
 
 def main() -> int:
@@ -2187,6 +2878,7 @@ def main() -> int:
     dir_launches = dir_phases(locals_, true_mats, odo_mats)
     subgraph_launches = subgraph_phase(reduced, true_mats, odo_mats)
     srr_launches = srr_phase()
+    search_phase(reduced, true_mats)
     del reduced, locals_
 
     k2 = bremen_phases(dev, IcpParams(

@@ -26,6 +26,23 @@ from tpu3dtk_torch.tools import kernel_tuning
 from tpu3dtk_torch.io import boctree
 from tpu3dtk_torch.models import sc_fixed, srr, streaming, subgraph
 from tpu3dtk_torch.cli import icp_fixpoint
+from tpu3dtk_torch.cli import calc_normals, planes, preg6d as preg6d_cli, scan_red
+from tpu3dtk_torch.io import hough_config
+from tpu3dtk_torch.models import preg6d, shapes
+from tpu3dtk_torch.ops import panorama, search
+assert callable(shapes.detect_planes_rht) and callable(preg6d.plane_register)
+assert callable(hough_config.load_hough_config) and callable(panorama.reduce_interpolate)
+assert callable(search.fixed_range_search_along_dir) and callable(normals.knn_pca_features)
+assert callable(interop.planes_from_numpy) and callable(interop.preg_params_from)
+a = planes.build_parser().parse_args(["d", "-p", "sht", "-C", "h.cfg", "--device", "cpu"])
+assert (a.plane_algo, a.config, a.device) == ("sht", "h.cfg", "cpu")
+assert planes.build_parser().parse_args(["d"]).plane_algo == "rht"
+a = preg6d_cli.build_parser().parse_args(["d", "--optimizer", "adadelta", "--device", "cpu"])
+assert (a.optimizer, a.iter, a.max_planes, a.device) == ("adadelta", 50, 12, "cpu")
+a = calc_normals.build_parser().parse_args(["d", "-g", "panorama", "--device", "cpu"])
+assert (a.ntype, a.device) == ("panorama", "cpu")
+a = scan_red.build_parser().parse_args(["d", "-r", "RANGE", "--device", "cpu"])
+assert (a.reduction, a.width, a.height, a.device) == ("RANGE", 3600, 1000, "cpu")
 assert callable(boctree.write_oct) and callable(streaming.register_streaming)
 assert callable(subgraph.subgraph_slam) and callable(srr.semi_rigid_registration)
 assert callable(sc_fixed.icp_pair_fixed) and callable(interop.line_scan_set_from_numpy)
@@ -133,4 +150,25 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
         sc_fixed.compare_fixed_float(pts, pts, np.eye(4), 1.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         icp_fixpoint.main([str(tmp_path)])
+    from tpu3dtk_torch.cli import calc_normals, planes, preg6d as preg6d_cli, scan_red
+    from tpu3dtk_torch.models import preg6d, shapes
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shapes.detect_planes(pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shapes.detect_planes_rht(pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shapes.hough_accumulator(pts, shapes.HoughParams())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        preg6d.preg6d(two)
+    for est in (normals.estimate_normals_adaptive_knn, normals.estimate_normals_apx_knn):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            est(pts, np.ones(4, bool), np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        normals.estimate_normals_panorama(pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        normals.knn_pca_features(pts)
+    for cli in (planes, preg6d_cli, calc_normals, scan_red):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([str(tmp_path)])
     assert SequenceRegistration(device="cpu")._device() == torch.device("cpu")

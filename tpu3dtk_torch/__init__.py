@@ -9,18 +9,22 @@ kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
 
 - ``core``   math3d (numpy/torch backends), Scan
 - ``io``     scan directories, formats, .frames, prefetch cache, .oct
-  octree files
+  octree files, ConfigFileHough files
 - ``ops``    voxel reduction, brute NN and cell-list NN (each a plain
-  torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``)
+  torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``),
+  k-NN, the four normal estimators, range/box/segment searches, panorama
+  projections (host numpy)
 - ``models`` minimizers, ICP (while-style loop, the chained cell-list
   engine, loop-closure windows), sequential registration, LUM graph
   relaxation (on the device and the host path), the correspondence
   cache, ELCH loop closing, the GraphPipeline, out-of-core streaming,
-  subgraph SLAM, semi-rigid line-scan registration, the bf16 ICP harness
+  subgraph SLAM, semi-rigid line-scan registration, the bf16 ICP harness,
+  Hough plane detection (SHT, RHT), plane-based registration (preg6d)
 - ``utils``  named-phase metrics
 - ``cli``    torchslam (the slam6D-style command; sequential ICP, ``-n`` /
   ``-C`` graph LUM, ``-L``/``-G`` GraphPipeline, ``--cache-mb``,
-  ``--saveOct``/``--loadOct``), torchicpfixpoint
+  ``--saveOct``/``--loadOct``), torchicpfixpoint, torchplanes,
+  torchplanereg, torchnormals, torchscan_red
 
 This package imports neither ``jax`` nor ``tpu3dtk``.
 """

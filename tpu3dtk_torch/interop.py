@@ -21,11 +21,13 @@ their fields given as numpy arrays, become the port's
 table, relative poses, the resident idx/found rows) so both packages can
 start from one cache state; :func:`lum_params_from`,
 :func:`elch_params_from`, :func:`graph_pipeline_from`,
-:func:`subgraph_params_from` and :func:`srr_params_from` map the JAX
+:func:`subgraph_params_from`, :func:`srr_params_from`,
+:func:`hough_params_from` and :func:`preg_params_from` map the JAX
 dataclasses' fields (given as a dict, e.g. ``vars(p)``) onto the port's,
 dropping the fields that only exist for XLA (shape buckets, hashed
 grids, meshes, the segmented loop) and refusing unknown ones;
-:func:`line_scan_set_from_numpy` rebuilds an ``srr.LineScanSet``.
+:func:`line_scan_set_from_numpy` rebuilds an ``srr.LineScanSet``;
+:func:`planes_from_numpy` rebuilds ``shapes.Plane`` lists.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from .ops.nn_cell_list import CellListModel
 
 __all__ = [
     "corr_cache_from_numpy", "elch_params_from", "graph_pipeline_from",
-    "line_scan_set_from_numpy", "lum_params_from", "scans_from_numpy",
+    "hough_params_from", "line_scan_set_from_numpy", "lum_params_from",
+    "planes_from_numpy", "preg_params_from", "scans_from_numpy",
     "srr_params_from", "subgraph_params_from",
 ]
 
@@ -100,6 +103,35 @@ def srr_params_from(fields: Mapping):
     from .models.srr import SrrParams
 
     return SrrParams(**_carried(fields, ()))
+
+
+def hough_params_from(fields: Mapping):
+    """The port's ``shapes.HoughParams`` from a JAX one's fields."""
+    from .models.shapes import HoughParams
+
+    return HoughParams(**_carried(fields, ()))
+
+
+def preg_params_from(fields: Mapping):
+    """The port's ``preg6d.PregParams`` from a JAX one's fields."""
+    from .models.preg6d import PregParams
+
+    return PregParams(**_carried(fields, ()))
+
+
+def planes_from_numpy(planes: Iterable[Mapping]):
+    """``shapes.Plane`` objects from mappings of a JAX ``Plane``'s fields
+    (``normal`` [3], ``rho``, ``n_inliers``, ``center`` [3]), e.g.
+    ``vars(p)``."""
+    from .models.shapes import Plane
+
+    return [
+        Plane(
+            normal=np.array(p["normal"], dtype=np.float64), rho=float(p["rho"]),
+            n_inliers=int(p["n_inliers"]), center=np.array(p["center"], dtype=np.float64),
+        )
+        for p in planes
+    ]
 
 
 def line_scan_set_from_numpy(state: Mapping):

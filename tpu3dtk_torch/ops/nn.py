@@ -101,7 +101,7 @@ def masked_center(model, mmask):
 
 def sq_norm3(d):
     """x² + y² + z², rounded in that order (the kernel's order)."""
-    return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
 
 
 def accept(query, qmask, model, mmask, idx, max_dist2):

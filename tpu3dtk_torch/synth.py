@@ -28,9 +28,14 @@ from .core import math3d
 from .io.writer import write_pose, write_uos
 
 __all__ = [
-    "synth_city", "synth_linescans", "synth_loop", "synth_ring",
-    "write_net_graph", "write_scan_dir",
+    "city_planes", "ring_normals", "synth_city", "synth_linescans", "synth_loop",
+    "synth_ring", "write_net_graph", "write_scan_dir",
 ]
+
+# synth_city's blocks: 4 x 4 of CITY_BLOCK cm squares, CITY_PITCH cm apart
+CITY_BLOCK = 2200.0
+CITY_PITCH = 3500.0
+CITY_ORIGIN = 800.0
 
 
 def write_scan_dir(directory: str, locals_, poses) -> list[str]:
@@ -269,8 +274,8 @@ def synth_city(n_scans=13, n_pts=1_000_000, seed=23):
     # building blocks on a grid with street gaps
     for bx in range(4):
         for bz in range(4):
-            x0, z0 = 800 + bx * 3500, 800 + bz * 3500
-            w, d, h = 2200.0, 2200.0, rng.uniform(800, 2500)
+            x0, z0 = CITY_ORIGIN + bx * CITY_PITCH, CITY_ORIGIN + bz * CITY_PITCH
+            w, d, h = CITY_BLOCK, CITY_BLOCK, rng.uniform(800, 2500)
             n_f = 160_000
             side = rng.integers(0, 4, n_f)
             u = rng.uniform(0, 1, n_f)
@@ -317,3 +322,37 @@ def synth_city(n_scans=13, n_pts=1_000_000, seed=23):
         To[:3, 3] += dacc
         odo_mats.append(To)
     return locals_, true_mats, odo_mats
+
+
+def city_planes():
+    """The distinct planes of :func:`synth_city`'s world as (unit normal
+    [3], d) with n·p = d: the ground y = 0, then the facade planes x =
+    const and z = const of the 4 x 4 blocks (each shared by a row of
+    blocks)."""
+    edges = sorted({CITY_ORIGIN + k * CITY_PITCH + s for k in range(4) for s in (0.0, CITY_BLOCK)})
+    planes = [(np.array([0.0, 1.0, 0.0]), 0.0)]
+    for axis in (0, 2):
+        n = np.zeros(3)
+        n[axis] = 1.0
+        planes += [(n.copy(), float(e)) for e in edges]
+    return planes
+
+
+def ring_normals(world, radius=4500.0, half_width=300.0, half_height=600.0, tol=5.0):
+    """The analytic surface normals of :func:`synth_ring`'s corridor at
+    world points [N,3] (its default geometry): radial on the two walls,
+    vertical on the floor and the ceiling.  Returns (normals [N,3],
+    on_surface [N] bool): points within ``tol`` cm of a wall, the floor
+    or the ceiling, and not within 60 cm of a pillar's axis (pillars
+    every 15 degrees on the centre line)."""
+    w = np.asarray(world, np.float64)
+    r = np.hypot(w[:, 0], w[:, 2])
+    wall = (np.abs(r - (radius - half_width)) < tol) | (np.abs(r - (radius + half_width)) < tol)
+    flat = np.abs(np.abs(w[:, 1]) - half_height) < tol
+    a = np.arange(0, 2 * np.pi, np.pi / 12)
+    pillars = np.stack([radius * np.cos(a), radius * np.sin(a)], 1)
+    near = (((w[:, None, [0, 2]] - pillars[None]) ** 2).sum(-1) < 60.0**2).any(1)
+    n = np.zeros_like(w)
+    n[:, 0], n[:, 2] = w[:, 0] / np.maximum(r, 1e-9), w[:, 2] / np.maximum(r, 1e-9)
+    n[flat & ~wall] = [0.0, 1.0, 0.0]
+    return n, (wall ^ flat) & ~near
