@@ -156,6 +156,50 @@ of its device time.
    within 1e-3 cm² (along a direction plus 2^-20 |m - q|², the f32
    cancellation of |m - q|² - proj²).
 
+Slice 8 (scanner formats and the converter tools; the NN calls on these
+paths are K1 or K2, and each phase counts them):
+
+28. formats — phase 8's 13 bremen scans read back from its uos directory
+   and written as a LAS directory (scale 1e-3, the inverse of the pts
+   axis convention) and an E57 directory (f64, the inverse of the xyz
+   convention) with the same .pose files and bremen.net; ``torchslam -f
+   las`` and ``-f e57`` with phase 8's flags: 12 matches, K2 launches =
+   chained loop trips + chained LUM link calls, relative-pose error below
+   odometry's, the poses within 0.5 cm / 1e-3 (LAS, quantized input) and
+   0.05 cm / 1e-4 (E57, the same f64) of phase 8's; write time,
+   ``read_scan_time``, wall and bytes on disk beside phase 8's text read.
+29. velodyne — 20 HDL-64E captures of a 20 x 12 x 4 m box room
+   (``synth.synth_velodyne``: 10 cm and 0.5 deg a capture, odometry off by
+   a seeded error): capture 0's decoded points on the room's faces within
+   0.3 cm; ``torchslam -f velodyne -r 10 -O 1 -d 50 -i 50 --epsICP 1e-6``:
+   K1 launches = ICP iterations, captures 0-1 on the card against
+   ``--device cpu`` (0.5 cm / 1e-3), its error printed; the same with
+   ``--plane``: median relative translation error <= 1 cm and below
+   odometry's (point pairs on the floor's laser rings, which move with
+   the sensor, pull the point-to-point run toward no motion).
+30. converters — ``torchconvert scandiff`` on phase 8's scans 0 and 1 (raw,
+   ~1M x 1M, in phase 8's frames, -d 50): one K1 call of at most 3 kernel
+   launches, the found flags of the first 65536 queries equal to the plain
+   ``nn_brute`` on the card off the d² = 2500 +- 1e-2 band, K1's device
+   time and bound at that shape; ``scandiff2d`` (PNG read back = image);
+   ``condense --split 10 -r 10 --use-frames`` of phase 4's 468 scans and
+   frames, ``torchslam`` (phase 4's flags) on the metascans (the engine and
+   its launch identity; their relative-pose error below odometry's),
+   ``atomize``: every scan has frames, each its registered pose under its
+   group's correction, ATE printed beside phase 4's; the trajectory tools
+   on phase 4's frames (round trips within 1e-9 relative, kitti's 9-digit
+   text 5e-9; ``ate --no-align`` = chip_smoke's ATE within 1e-6 cm); ``sicp_align`` on 10^6
+   row-matched pairs of bremen scan 0 (0.01 cm / 1e-5 of the transform;
+   card against CPU 1e-3 cm / 1e-6); ``scan2features -r 10 -K 20`` on
+   phase 17's 24 scans (median normal angle <= phase 25's knn + 0.5 deg);
+   ``graphbalancer`` on bremen.net (card file = CPU file).
+31. export and parser — ``torchexport -f e57 -r 20 -O 1`` of the 13
+   registered bremen scans (phase 28's E57 directory) into one file (count
+   = the sum of the per-scan counts, scan 0 = its reduced points under its
+   frame within 1e-3 cm; read, reduction and text write timed); the native parser on scan 0's text
+   (= ``np.loadtxt``'s array, both timed) and a copy with every 1000th
+   line cut short or junk through ``read_scan`` (the good rows kept).
+
 Phase 3 also times a library yardstick for K1: ``torch.cdist(q,
 m).min(dim=1)`` at the first match's shape in both compute modes (no
 mask; a reference point, not a port).  A line before the last is one
@@ -1126,8 +1170,11 @@ def icp_matrix_phase(locals_, true_mats, odo_mats):
 
 
 def bremen_phases(dev, params_city):
-    """Phases 7-10: kernel K2 and the city-scale path.  Returns K2's entry
-    for the kernels line."""
+    """Phases 7-10: kernel K2 and the city-scale path, then phases 23, 26
+    and 24 on the city and 28, 30 (scandiff, sicp, graphbalancer) and 31 on
+    phase 8's directory.  Returns K2's entry for the kernels line."""
+    import shutil
+
     import numpy as np
     import torch
 
@@ -1372,33 +1419,36 @@ def bremen_phases(dev, params_city):
 
     # ---- phase 8: the bremen slice through the CLI ------------------------
     links = [(i, i + 1) for i in range(CITY_SCANS - 1)] + [(0, CITY_SCANS - 1)]
-    with tempfile.TemporaryDirectory() as tmp:
-        scan_dir = os.path.join(tmp, "scans")
-        out_dir = os.path.join(tmp, "frames")
-        os.makedirs(out_dir)
-        t0 = time.perf_counter()
-        idents = synth.write_scan_dir(scan_dir, locals_, odo_mats)
-        net = os.path.join(scan_dir, "bremen.net")
-        synth.write_net_graph(net, CITY_SCANS, links)
-        write_s = time.perf_counter() - t0
-        metrics.reset()
-        cell_list_rows_kernel.launches = 0
-        nn_cuda.nn_brute_kernel.launches = 0
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = slam6d.main([
-                scan_dir, "-f", "uos", "-r", str(CITY_VOXEL), "-O", "1", "-d", str(CITY_DIST),
-                "-i", "50", "--epsICP", "1e-4", "-n", net, "-I", "5", "-D", str(CITY_DIST),
-                "--epsSLAM", "0.5", "--frames-out", out_dir,
-            ])
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        k2_launches = cell_list_rows_kernel.launches
-        k1_launches = nn_cuda.nn_brute_kernel.launches
-        text = buf.getvalue()
-        check(rc == 0, f"torchslam -n returned {rc}")
-        frames = [frames_io.read_frames(frames_io.frames_path(out_dir, i)) for i in idents]
+    # phase 8's directory and frames stay for phases 28, 30 and 31
+    city_tmp = tempfile.TemporaryDirectory()
+    tmp = city_tmp.name
+    scan_dir = os.path.join(tmp, "scans")
+    out_dir = os.path.join(tmp, "frames")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    idents = synth.write_scan_dir(scan_dir, locals_, odo_mats)
+    city_scans = scan_dir
+    net = os.path.join(scan_dir, "bremen.net")
+    synth.write_net_graph(net, CITY_SCANS, links)
+    write_s = time.perf_counter() - t0
+    metrics.reset()
+    cell_list_rows_kernel.launches = 0
+    nn_cuda.nn_brute_kernel.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = slam6d.main([
+            scan_dir, "-f", "uos", "-r", str(CITY_VOXEL), "-O", "1", "-d", str(CITY_DIST),
+            "-i", "50", "--epsICP", "1e-4", "-n", net, "-I", "5", "-D", str(CITY_DIST),
+            "--epsSLAM", "0.5", "--frames-out", out_dir,
+        ])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k2_launches = cell_list_rows_kernel.launches
+    k1_launches = nn_cuda.nn_brute_kernel.launches
+    text = buf.getvalue()
+    check(rc == 0, f"torchslam -n returned {rc}")
+    frames = [frames_io.read_frames(frames_io.frames_path(out_dir, i)) for i in idents]
     cnt = {k: int(m.total) for k, m in metrics.counters.items()}
     tim = {k: m.total for k, m in metrics.timers.items()}
     iters = [int(v) for v in re.findall(r"^scan \d+: ITER (\d+)", text, re.M)]
@@ -1510,12 +1560,26 @@ def bremen_phases(dev, params_city):
         planes_phase(tmp, scan_dir, np.asarray(true_mats[0]))
         scan_red_phase(tmp, scan_dir)
         planereg_phase(tmp, locals_, true_mats)
+    # ---- phases 28, 30, 31 on phase 8's directory and frames ---------------
+    try:
+        tmp = city_tmp.name
+        formats = formats_phase(tmp, city_scans, net, np.stack(true_mats), odo_mats, mats,
+                                tim.get("read_scan_time", 0.0))
+        for i in idents:  # the registered poses where the tools look for them
+            shutil.copy(frames_io.frames_path(out_dir, i), city_scans)
+        k1_scandiff, scandiff = scandiff_phase(tmp, city_scans)
+        sicp_phase(locals_[0])
+        balancer_phase(tmp, net)
+        export_parser_phase(tmp, city_scans, os.path.join(tmp, "e57"))
+    finally:
+        city_tmp.cleanup()
     # the path gives K2 the unclamped table: the line's numbers are that
     # shape's; the clamped table's device time stays beside them
     return {
         "launches": k2_launches, "k1_launches": k1_launches, "max_abs_err": k2_err,
         "ms": ku_ms, "plain_ms": pu_ms, "device_ms": du_ms, "bound_ms": u_bound_ms,
         "bound_by": bound_by, "instr_bound_ms": u_instr_ms, "clamped_device_ms": d_ms,
+        "launches_formats": formats, "k1_launches_scandiff": k1_scandiff, "scandiff": scandiff,
     }
 
 
@@ -1783,8 +1847,9 @@ def octree_phase(tmp, scan_dir, idents):
 
 
 def dir_phases(locals_, true_mats, odo_mats):
-    """Phases 22, 19 and 25 on phase 17's directory (the first 24 h468
-    scans), written anew.  Returns K1's launches in phases 22 and 19."""
+    """Phases 22, 19, 25 and 30's scan2features on phase 17's directory
+    (the first 24 h468 scans), written anew.  Returns K1's launches in
+    phases 22 and 19."""
     import numpy as np
 
     from tpu3dtk_torch import synth
@@ -1795,7 +1860,8 @@ def dir_phases(locals_, true_mats, odo_mats):
         idents = synth.write_scan_dir(scan_dir, locals_[:n], odo_mats[:n])
         fixed = fixpoint_phase(tmp, scan_dir, idents, np.stack(true_mats[:n]), odo_mats[:n])
         octree = octree_phase(tmp, scan_dir, idents)
-        normals_phase(tmp, scan_dir, idents, [np.asarray(T) for T in true_mats[:n]])
+        meds = normals_phase(tmp, scan_dir, idents, [np.asarray(T) for T in true_mats[:n]])
+        features_phase(tmp, scan_dir, idents, [np.asarray(T) for T in true_mats[:n]], meds["knn"])
     return {"octree": octree, "fixpoint": fixed}
 
 
@@ -2410,6 +2476,7 @@ def normals_phase(tmp, scan_dir, idents, true_mats):
         "apx": lambda: nrm.estimate_normals_apx_knn(t0, m0, vp),
         "panorama": lambda: nrm.estimate_normals_panorama(p0, device=CARD),
     }
+    meds = {}
     for g in ("knn", "adaptive", "apx", "panorama"):
         out = os.path.join(tmp, f"normals_{g}")
         rc, _text, wall = _cli(calc_normals, [scan_dir, "-f", "uos", "-r", "10", "-O", "1",
@@ -2419,7 +2486,7 @@ def normals_phase(tmp, scan_dir, idents, true_mats):
         for ident, T in zip(idents, true_mats):
             xyzn = np.loadtxt(os.path.join(out, f"scan{ident}.3d"))
             angles.append(_ring_angles(xyzn[:, 3:], xyzn[:, :3], T))
-        med = float(np.median(np.concatenate(angles)))
+        med = meds[g] = float(np.median(np.concatenate(angles)))
         calls[g]()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -2469,6 +2536,7 @@ def normals_phase(tmp, scan_dir, idents, true_mats):
     profile_top(25, "normals", f"one adaptive estimate of scan 0 ({len(p0)} points)",
                  calls["adaptive"])
     phase(25, "normals", k12_check("normals"))
+    return meds
 
 
 def scan_red_phase(tmp, scan_dir):
@@ -2580,6 +2648,648 @@ def search_phase(reduced, true_mats):
     profile_top(27, "search", "one fixed_range_search", lambda: search.fixed_range_search(
         q, ones, m, onem, md2, K=SEARCH_K))
     phase(27, "search", k12_check("search"))
+
+
+# ---- phases 28-31: scanner formats, the converter tools, torchexport and
+# the native text parser (slice 8).  Each phase drives its path through the
+# CLI a user calls; the NN calls on these paths are K1 or K2 and each
+# phase counts them.
+
+# phase 28/8: torchslam's city flags
+CITY_FLAGS = ["-r", str(CITY_VOXEL), "-O", "1", "-d", str(CITY_DIST), "-i", "50", "--epsICP",
+              "1e-4", "-I", "5", "-D", str(CITY_DIST), "--epsSLAM", "0.5"]
+# phase 29: an HDL-64E driven through a 20 x 12 x 4 m room (synth.synth_velodyne)
+VELO_CAPTURES = 20
+VELO_FLAGS = ["-r", "10", "-O", "1", "-d", "50", "-i", "50", "--epsICP", "1e-6"]
+VELO_FACE_CM = 0.3
+VELO_CPU_LAST = 1  # card against CPU on captures 0..1 (the CPU's brute NN is slow)
+# phase 30
+SCANDIFF_DIST = 50.0
+SCANDIFF_CHECK = 65536
+CONDENSE_SPLIT = 10
+SICP_NOISE_CM = 1.0
+SICP_T = ((35.0, -12.0, 80.0), (0.02, -0.05, 0.03))  # cm, rad
+FEATURES_K = 20
+# phase 31: every 1000th line of the ragged copy cut short or made junk
+PARSER_BAD_EVERY = 1000
+
+
+def city_cli(scan_dir, fmt, net, out_dir):
+    """``torchslam -f fmt`` with phase 8's flags: checks exit 0, 12
+    matches and K2's launch identity (chained loop trips + chained LUM link
+    calls); returns (final poses, wall s, timers, K1, K2, trips, link calls)."""
+    import numpy as np
+
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.models import graphslam as gs
+    from tpu3dtk_torch.models import icp as icp_mod
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    metrics.reset()
+    k12_zero()
+    rc, text, wall = _cli(slam6d, [scan_dir, "-f", fmt, *CITY_FLAGS, "-n", net,
+                                   "--frames-out", out_dir])
+    k1 = nn_cuda.nn_brute_kernel.launches
+    k2 = nn_cell_list_cuda.cell_list_rows_kernel.launches
+    check(rc == 0, f"torchslam -f {fmt} -n returned {rc}")
+    iters = re.findall(r"^scan \d+: ITER (\d+)", text, re.M)
+    check(len(iters) == CITY_SCANS - 1, f"-f {fmt}: {len(iters)} matches, want {CITY_SCANS - 1}")
+    cnt = {k: int(m.total) for k, m in metrics.counters.items()}
+    trips, links = cnt.get(icp_mod.CHAINED_TRIPS, 0), cnt.get(gs.CHAINED_LINK_CALLS, 0)
+    check(k2 > 0 and k2 == trips + links,
+          f"-f {fmt}: K2 launches {k2} != chained ICP loop trips {trips} + LUM link calls {links}")
+    mats = np.stack([frames_io.final_pose(frames_io.frames_path(out_dir, f"{k:03d}"))
+                     for k in range(CITY_SCANS)])
+    check(bool(np.isfinite(mats).all()), f"-f {fmt}: non-finite poses")
+    tim = {k: m.total for k, m in metrics.timers.items()}
+    return mats, wall, tim, k1, k2, trips, links
+
+
+def formats_phase(tmp, scan_dir, net, true_mats, odo_mats, uos_mats, uos_read_s):
+    """Phase 28: phase 8's 13 bremen scans read back from its uos
+    directory and written as a LAS directory (scale 1e-3, the inverse of
+    ``_t_pts``) and an E57 directory (f64, the inverse of ``_t_xyz``) with
+    the same .pose files and bremen.net; ``torchslam -f las`` and ``-f
+    e57`` with phase 8's flags: 12 matches, K2's identity, relative-pose
+    error below odometry's, and the poses against phase 8's (E57 0.05 cm
+    / 1e-4: the same f64 input; LAS 0.5 cm / 1e-3: quantized to 1e-3
+    cm).  Returns K2's launches per format."""
+    import shutil
+
+    import numpy as np
+
+    from tpu3dtk_torch.io import e57, las
+    from tpu3dtk_torch.io.formats import get_format
+    from tpu3dtk_torch.io.scandir import read_scan
+
+    t0 = time.perf_counter()
+    raws = [read_scan(scan_dir, f"{k:03d}", get_format("uos")) for k in range(CITY_SCANS)]
+    read_s = time.perf_counter() - t0
+    uos_bytes = sum(os.path.getsize(os.path.join(scan_dir, f"scan{k:03d}.3d")) for k in range(CITY_SCANS))
+
+    def las_file(path, xyz):
+        back = xyz.copy()
+        back[:, 2] = -back[:, 2]  # _t_pts negates z
+        las.write_las(path, back, scale=1e-3)
+
+    def e57_file(path, xyz):
+        # _t_xyz: (x, y, z)_uos = 100 (-y, z, x)_file
+        e57.write_e57(path, np.stack([xyz[:, 2], -xyz[:, 0], xyz[:, 1]], axis=1) / 100.0)
+
+    eo = rel_trans_err(np.stack(odo_mats), true_mats)
+    phase(28, "formats", f"phase 8's {CITY_SCANS} uos scans read back in {read_s:.2f} s "
+          f"({sum(r.size for r in raws)} points, {uos_bytes} bytes of text; phase 8's torchslam "
+          f"read_scan_time {uos_read_s:.2f} s)")
+    out = {}
+    for fmt, writer, tol in (("las", las_file, (0.5, 1e-3)), ("e57", e57_file, (0.05, 1e-4))):
+        d = os.path.join(tmp, fmt)
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        for k, raw in enumerate(raws):
+            writer(os.path.join(d, f"scan{k:03d}.{fmt}"), raw.xyz)
+            shutil.copy(os.path.join(scan_dir, f"scan{k:03d}.pose"), d)
+        write_s = time.perf_counter() - t0
+        shutil.copy(net, d)
+        nbytes = sum(os.path.getsize(os.path.join(d, f"scan{k:03d}.{fmt}")) for k in range(CITY_SCANS))
+        frames = os.path.join(tmp, f"frames_{fmt}")
+        os.makedirs(frames)
+        mats, wall, tim, k1, k2, trips, links = city_cli(d, fmt, os.path.join(d, "bremen.net"), frames)
+        e = rel_trans_err(mats, true_mats)
+        dt = float(np.abs(mats[:, :3, 3] - uos_mats[:, :3, 3]).max())
+        dr = float(np.abs(mats[:, :3, :3] - uos_mats[:, :3, :3]).max())
+        phase(28, "formats", f"-f {fmt}: written in {write_s:.2f} s, {nbytes} bytes on disk; torchslam "
+              f"-f {fmt} wall {wall:.2f} s, read_scan_time {tim.get('read_scan_time', 0.0):.2f} s; K2 "
+              f"launches {k2} = {trips} chained ICP loop trips + {links} chained LUM link calls, K1 "
+              f"{k1}; relative-pose error median {np.median(e):.4f} cm, max {e.max():.4f} (odometry "
+              f"median {np.median(eo):.4f}); against phase 8's poses {dt:.4f} cm / {dr:.2e} rot "
+              f"(bound {tol[0]} cm / {tol[1]})")
+        check(float(np.median(e)) < float(np.median(eo)), f"-f {fmt}: no better than odometry")
+        check(dt <= tol[0] and dr <= tol[1], f"-f {fmt}: poses {dt} cm / {dr} from phase 8's")
+        out[fmt] = k2
+    return out
+
+
+def velodyne_phase():
+    """Phase 29: 20 HDL-64E captures of a 20 x 12 x 4 m box room
+    (``synth.synth_velodyne``: 10 cm and 0.5 deg a capture, odometry off
+    by a seeded error); the decoded points of capture 0 on the room's
+    faces within 0.3 cm; ``torchslam -f velodyne -r 10 -O 1 -d 50 -i 50
+    --epsICP 1e-6``: K1 launches = ICP iterations, the card against
+    ``--device cpu`` on captures 0-1 (0.5 cm / 1e-3); the same with
+    ``--plane``: median relative translation error <= 1 cm and below
+    odometry's.  The point-to-point run's error is printed: the floor's
+    laser rings move with the sensor and pull point pairs toward no
+    motion (PERF.md).  Returns K1's launches of both runs."""
+    import numpy as np
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io import velodyne
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+
+    t0 = time.perf_counter()
+    caps, true_mats, odo_mats = synth.synth_velodyne(n_captures=VELO_CAPTURES)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = [velodyne.decode_velodyne(c) for c in caps]
+    dec_ms = (time.perf_counter() - t0) / len(caps) * 1e3
+    returns = [len(d["xyz"]) for d in decoded]
+    w0 = np.asarray(math3d.transform3(true_mats[0], decoded[0]["xyz"]))
+    face = np.minimum(np.abs(w0 - synth.VELO_ROOM_LO), np.abs(w0 - synth.VELO_ROOM_HI)).min(1)
+    phase(29, "velodyne", f"{len(caps)} captures ray-cast in {gen_s:.2f} s ({len(caps[0])} bytes "
+          f"each); decode {dec_ms:.2f} ms a capture (host numpy), {min(returns)}-{max(returns)} "
+          f"returns a capture; capture 0 on the room's faces within {face.max():.4f} cm "
+          f"(bound {VELO_FACE_CM})")
+    check(face.max() <= VELO_FACE_CM, f"capture 0: a point {face.max()} cm off the room's faces")
+    eo = rel_trans_err(odo_mats, true_mats)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_dir = os.path.join(tmp, "scans")
+        idents = synth.write_velodyne_dir(scan_dir, caps, odo_mats)
+        runs = {}
+        for label, extra, device, last in (
+            ("point-to-point", [], CARD, -1), ("--plane", ["--plane"], CARD, -1),
+            ("point-to-point", [], "cpu", VELO_CPU_LAST),
+        ):
+            out = os.path.join(tmp, f"{label.strip('-')}_{device}")
+            os.makedirs(out)
+            k12_zero()
+            rc, text, wall = _cli(slam6d, [scan_dir, "-f", "velodyne", *VELO_FLAGS, *extra, "-e",
+                                           str(last), "--device", device, "--frames-out", out])
+            check(rc == 0, f"torchslam -f velodyne {label} --device {device} returned {rc}")
+            iters = [int(v) for v in re.findall(r"^scan \d+: ITER (\d+)", text, re.M)]
+            n = len(idents) if last < 0 else last + 1
+            check(len(iters) == n - 1, f"-f velodyne {label}: {len(iters)} matches, want {n - 1}")
+            mats = np.stack([frames_io.final_pose(frames_io.frames_path(out, i)) for i in idents[:n]])
+            check(bool(np.isfinite(mats).all()), f"-f velodyne {label}: non-finite poses")
+            runs[(label, device)] = mats
+            if device != CARD:
+                continue
+            k1 = nn_cuda.nn_brute_kernel.launches
+            k2 = nn_cell_list_cuda.cell_list_rows_kernel.launches
+            check(k1 == sum(iters) and k2 == 0,
+                  f"-f velodyne {label}: K1 launches {k1} != ICP iterations {sum(iters)} (K2 {k2})")
+            e = rel_trans_err(mats, true_mats)
+            phase(29, "velodyne", f"torchslam -f velodyne {label} on the card: wall {wall:.2f} s, "
+                  f"{sum(iters)} ICP iterations = K1 launches {k1}; relative translation error median "
+                  f"{np.median(e):.4f} cm, max {e.max():.4f}; odometry median {np.median(eo):.4f}, "
+                  f"max {eo.max():.4f}")
+            launches[label] = k1
+            if label == "--plane":
+                check(float(np.median(e)) <= 1.0 and float(np.median(e)) < float(np.median(eo)),
+                      f"-f velodyne --plane: median relative error {np.median(e)} cm")
+        card, cpu = runs[("point-to-point", CARD)][: VELO_CPU_LAST + 1], runs[("point-to-point", "cpu")]
+        dt = float(np.abs(card[:, :3, 3] - cpu[:, :3, 3]).max())
+        dr = float(np.abs(card[:, :3, :3] - cpu[:, :3, :3]).max())
+        phase(29, "velodyne", f"card against --device cpu on captures 0-{VELO_CPU_LAST}: {dt:.4f} cm / "
+              f"{dr:.2e} rot (bound 0.5 cm / 1e-3)")
+        check(dt <= 0.5 and dr <= 1e-3, "-f velodyne: card and CPU poses disagree")
+    return launches
+
+
+def _truth_frames(directory, mats):
+    """One-line .frames files holding ``mats`` (a .frames directory of the
+    truth for ``torchconvert ate``)."""
+    from tpu3dtk_torch.io import frames as frames_io
+
+    os.makedirs(directory, exist_ok=True)
+    for k, T in enumerate(mats):
+        frames_io.write_frames(frames_io.frames_path(directory, f"{k:03d}"), T[None], [1])
+
+
+def scandiff_phase(tmp, scan_dir):
+    """Phase 30, scandiff: ``torchconvert scandiff`` on phase 8's scans 0
+    and 1 (raw, ~1M x 1M points, in their frames from phase 8's run), -d
+    50: one K1 call of at most 3 kernel launches; on the first 65536
+    queries of scan 1 the found flags equal the plain ``nn_brute`` on the
+    card but where d² lies within 1e-2 cm² of 2500; then ``scandiff2d``
+    on the pair: the PNG read back equals the returned image.  Returns
+    (K1 launches of both calls, the K1 line's scandiff numbers)."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.cli import convert
+    from tpu3dtk_torch.io import converters as cv
+    from tpu3dtk_torch.io.png import read_png
+    from tpu3dtk_torch.ops import nn as nn_ops
+    from tpu3dtk_torch.ops import nn_cuda
+
+    k12_zero()
+    diff_path = os.path.join(tmp, "diff.3d")
+    rc, text, wall = _cli(convert, ["scandiff", scan_dir, "-a", "0", "-b", "1", "-d",
+                                    str(SCANDIFF_DIST), "-o", diff_path])
+    k1 = nn_cuda.nn_brute_kernel.launches
+    check(rc == 0, f"torchconvert scandiff returned {rc}")
+    check(k1 == 1, f"torchconvert scandiff: K1 launched {k1} times, want one call")
+    n_diff = int(re.search(r"^(\d+) difference points", text, re.M).group(1))
+    a = cv.registered_points(scan_dir, "uos", 0).astype(np.float32)
+    b = cv.registered_points(scan_dir, "uos", 1).astype(np.float32)
+    ta = torch.as_tensor(a, device=CARD)
+    tb = torch.as_tensor(b, device=CARD)
+    bm = nn_ops.prepare_brute_model(ta, torch.ones(len(a), dtype=torch.bool, device=CARD))
+    qm = torch.ones(len(b), dtype=torch.bool, device=CARD)
+    md2 = SCANDIFF_DIST**2
+    call = lambda: nn_cuda.nn_brute_kernel(tb, qm, bm, None, md2)  # noqa: E731
+    _idx, k_d2, k_found = call()
+    check(int((~k_found).sum()) == n_diff, f"scandiff: {n_diff} points written, the kernel "
+          f"leaves {int((~k_found).sum())}")
+    nq = SCANDIFF_CHECK
+    _pi, p_d2, p_found = nn_ops.nn_brute(tb[:nq].contiguous(), qm[:nq], bm, None, md2)
+    band = (p_d2 - md2).abs() <= 1e-2
+    mism = (k_found[:nq] != p_found) & ~band
+    check(not bool(mism.any()), f"scandiff: {int(mism.sum())} of the first {nq} found flags differ "
+          "from the plain nn_brute off the boundary band")
+    dev_ms, api = device_ms(call, K1_KERNELS, reps=3)
+    check(api <= 3, f"scandiff: a K1 call made {api} kernel launches, want <= 3")
+    ms = cuda_ms(call, reps=3, warmup=1)
+    pairs = len(a) * len(b)
+    bound, by, instr = nn_bound(pairs, 13 * len(b) + 29 * len(a) + 12 + 13 * len(b), LOOP_SLOTS["nn_brute"])
+    phase(30, "converters", f"torchconvert scandiff (scans 0, 1, -d {SCANDIFF_DIST:g}): wall {wall:.2f} "
+          f"s, {n_diff} of {len(b)} points differ; K1 at {len(b)} x {len(a)} ({pairs:.4g} pairs): "
+          f"{api:.1f} kernel launches a call, device time {dev_ms:.2f} ms, wrapper {ms:.2f} ms "
+          f"({pairs / dev_ms / 1e9:.4g}e12 pairs/s), bound {bound:.3f} ms ({by}), instruction-rate "
+          f"bound {instr:.3f} ms; first {nq} queries against the plain nn_brute: "
+          f"{int(band.sum())} in the boundary band, 0 other differences")
+    k12_zero()
+    png = os.path.join(tmp, "diff2d.png")
+    t0 = time.perf_counter()
+    img = cv.scan_diff2d(scan_dir, png, "uos", 0, 1, SCANDIFF_DIST)
+    wall2 = time.perf_counter() - t0
+    k1b = nn_cuda.nn_brute_kernel.launches
+    check(k1b == 1, f"scan_diff2d: K1 launched {k1b} times")
+    check(np.array_equal(read_png(png), img), "scandiff2d: the PNG read back differs from the image")
+    phase(30, "converters", f"scan_diff2d (torchconvert scandiff2d's function): wall {wall2:.2f} s "
+          f"(both scans read twice, as in the JAX package), {img.shape[1]} x {img.shape[0]} image, "
+          f"{int((img == [255, 32, 32]).all(-1).sum())} red pixels; read_png equals the image")
+    return k1 + k1b, {"scandiff_shape": [len(b), len(a)], "scandiff_device_ms": dev_ms,
+                      "scandiff_ms": ms, "scandiff_bound_ms": bound,
+                      "scandiff_instr_bound_ms": instr}
+
+
+def condense_phase(tmp, scan_dir, frames_dir, true_mats, odo_mats, ate4):
+    """Phase 30, condense -> torchslam -> atomize on phase 4's directory and
+    frames: ``torchconvert frames2pose`` (the registered poses into the
+    .pose files atomize corrects), ``condense --split 10 -r 10
+    --use-frames`` (the metascans reduced on the card), ``torchslam`` with
+    phase 4's flags on them, ``atomize``: every scan gets frames, each
+    its registered pose under its group's correction (1e-9 relative), the
+    metascans' relative-pose error below odometry's between the same
+    anchors; the atomized ATE printed beside phase 4's (the metascan
+    matches add their own drift: 137.51 against 128.04 cm on the card, so
+    an ATE gate of phase 4's + 1 cm does not hold; PERF.md).  Returns the
+    engine and its launches."""
+    import shutil
+
+    import numpy as np
+
+    from tpu3dtk_torch.cli import convert, slam6d
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.models import icp as icp_mod
+    from tpu3dtk_torch.models import sequence as seq_mod
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    n = len(true_mats)
+    # atomize applies each group's correction to the scans' .pose files (as
+    # the reference's atomize does), so the registered poses go there
+    # first; condense --use-frames reads the .frames beside them
+    rc, _text, _s = _cli(convert, ["frames2pose", frames_dir, "-o", scan_dir])
+    check(rc == 0, f"torchconvert frames2pose returned {rc}")
+    for k in range(n):
+        shutil.copy(frames_io.frames_path(frames_dir, f"{k:03d}"), scan_dir)
+    cond = os.path.join(tmp, "cond")
+    k12_zero()
+    rc, text, cond_s = _cli(convert, ["condense", scan_dir, "--split", str(CONDENSE_SPLIT), "-r", "10",
+                                      "--use-frames", "-o", cond])
+    check(rc == 0, f"torchconvert condense returned {rc}")
+    k12_check("condense")
+    n_meta = -(-n // CONDENSE_SPLIT)
+    sizes = []
+    for k in range(n_meta):
+        with open(os.path.join(cond, f"scan{k:03d}.3d"), "rb") as f:
+            sizes.append(f.read().count(b"\n"))
+    metrics.reset()
+    k12_zero()
+    rc, text, slam_s = _cli(slam6d, [cond, "-f", "uos", "-r", "10", "-O", "1", "-d", str(MAX_DIST),
+                                     "-i", "50", "--epsICP", "1e-6", "--frames-out", cond])
+    check(rc == 0, f"torchslam on the metascans returned {rc}")
+    iters = sum(int(v) for v in re.findall(r"^scan \d+: ITER (\d+)", text, re.M))
+    k1 = nn_cuda.nn_brute_kernel.launches
+    k2 = nn_cell_list_cuda.cell_list_rows_kernel.launches
+    cnt = {k: int(m.total) for k, m in metrics.counters.items()}
+    chained = cnt.get(seq_mod.CHAINED_MATCHES, 0)
+    redone = cnt.get(seq_mod.CHAINED_REDONE, 0)
+    trips = cnt.get(icp_mod.CHAINED_TRIPS, 0)
+    if chained:
+        engine = f"chained (K2) for {chained} of {n_meta - 1} matches, {redone} redone by brute"
+        check(k2 == trips, f"metascans: K2 launches {k2} != chained loop trips {trips}")
+    else:
+        engine = "brute (K1)"
+        check(k1 == iters and k2 == 0, f"metascans: K1 launches {k1} != ICP iterations {iters}")
+    k12_zero()
+    rc, text, atom_s = _cli(convert, ["atomize", cond, scan_dir, "--split", str(CONDENSE_SPLIT)])
+    check(rc == 0, f"torchconvert atomize returned {rc}")
+    mats = []
+    for k in range(n):
+        m, tags = frames_io.read_frames(frames_io.frames_path(scan_dir, f"{k:03d}"))
+        check(len(m) == 3 and list(tags) == [2, 2, 2], f"scan {k:03d}: not an atomized .frames")
+        mats.append(m[-1])
+    mats = np.stack(mats)
+    check(bool(np.isfinite(mats).all()), "atomize: non-finite poses")
+    ate = ate_rmse(mats, true_mats)
+    # atomize's algebra: each scan's registered pose under its group's correction
+    reg = np.stack([frames_io.final_pose(frames_io.frames_path(frames_dir, f"{k:03d}")) for k in range(n)])
+    meta = np.stack([frames_io.final_pose(frames_io.frames_path(cond, f"{g:03d}")) for g in range(n_meta)])
+    anchor = reg[::CONDENSE_SPLIT]
+    want = np.stack([meta[k // CONDENSE_SPLIT] @ np.linalg.inv(anchor[k // CONDENSE_SPLIT]) @ reg[k]
+                     for k in range(n)])
+    algebra = float(np.abs(mats - want).max()) / float(np.abs(want).max())
+    em = rel_trans_err(meta, true_mats[::CONDENSE_SPLIT])
+    e4 = rel_trans_err(anchor, true_mats[::CONDENSE_SPLIT])
+    eo = rel_trans_err(odo_mats[::CONDENSE_SPLIT], true_mats[::CONDENSE_SPLIT])
+    phase(30, "converters", f"condense {n} scans -> {n_meta} metascans of {min(sizes)}-{max(sizes)} "
+          f"points (-r 10 on the card) in {cond_s:.2f} s; torchslam on them {slam_s:.2f} s, engine "
+          f"{engine}: K1 launches {k1} (ICP iterations {iters}), K2 launches {k2} (loop trips "
+          f"{trips}); metascan relative-pose error median {np.median(em):.4f} cm, max {em.max():.4f} "
+          f"(phase 4's between the same anchors {np.median(e4):.4f}, odometry's {np.median(eo):.4f})")
+    phase(30, "converters", f"atomize {atom_s:.2f} s: {n} scans with frames, each its registered pose "
+          f"under its group's correction within {algebra:.2e} relative; ATE rmse {ate:.2f} cm (phase "
+          f"4 {ate4:.2f}, odometry {ate_rmse(odo_mats, true_mats):.2f}): the metascan matches add "
+          f"their own drift (PERF.md)")
+    check(algebra <= 1e-9, f"atomize: poses {algebra} relative off correction @ registered pose")
+    check(float(np.median(em)) < float(np.median(eo)), "metascan registration no better than odometry")
+    return {"engine": "K2" if chained else "K1", "launches": k2 if chained else k1}
+
+
+def trajectory_phase(tmp, frames_dir, true_mats, seq_mats):
+    """Phase 30, the trajectory tools on phase 4's frames: frames2pose <->
+    pose2frames, frames2kitti <-> kitti2pose and frames2riegl <->
+    riegl2frames round trips within 1e-9 relative (kitti's text keeps 9
+    significant digits: within its 5e-9), frames2tum, frames2graph,
+    convergence, trajectorylength, transformframes, multframes,
+    average6dofposes; ``ate --no-align`` against the truth equals
+    chip_smoke's ATE within 1e-6 cm."""
+    import json as json_mod
+
+    import numpy as np
+
+    from tpu3dtk_torch.cli import convert
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io.scandir import read_pose_file
+
+    n = len(seq_mats)
+    scale = float(np.abs(seq_mats).max())
+    t_all = time.perf_counter()
+
+    def run(*argv):
+        rc, text, _s = _cli(convert, list(argv))
+        check(rc == 0, f"torchconvert {argv[0]} returned {rc}")
+        return text
+
+    def close(name, got, tol=1e-9):
+        err = float(np.abs(np.stack(got) - seq_mats).max()) / scale
+        check(err <= tol, f"{name}: round trip off by {err:.3e} relative (bound {tol})")
+        return err
+
+    errs = {}
+    poses = os.path.join(tmp, "t_poses")
+    os.makedirs(poses)
+    run("frames2pose", frames_dir, "-o", poses)
+    back = os.path.join(tmp, "t_frames")
+    os.makedirs(back)
+    run("pose2frames", poses, "-o", back)
+    errs["pose"] = close("frames2pose/pose2frames",
+                         [frames_io.final_pose(frames_io.frames_path(back, f"{k:03d}")) for k in range(n)])
+    kitti = os.path.join(tmp, "t.kitti")
+    run("frames2kitti", frames_dir, "-o", kitti)
+    kposes = os.path.join(tmp, "t_kposes")
+    run("kitti2pose", kitti, "-o", kposes)
+    errs["kitti"] = close("frames2kitti/kitti2pose", [
+        np.asarray(math3d.euler_to_matrix4(*read_pose_file(os.path.join(kposes, f"scan{k:03d}.pose"))))
+        for k in range(n)], tol=5e-9)
+    riegl = os.path.join(tmp, "t_riegl")
+    os.makedirs(riegl)
+    run("frames2riegl", frames_dir, "-o", riegl)
+    rback = os.path.join(tmp, "t_rframes")
+    os.makedirs(rback)
+    run("riegl2frames", riegl, "-o", rback)
+    errs["riegl"] = close("frames2riegl/riegl2frames",
+                          [frames_io.final_pose(frames_io.frames_path(rback, f"{k:03d}")) for k in range(n)])
+    tum = os.path.join(tmp, "t.tum")
+    run("frames2tum", frames_dir, "-o", tum)
+    check(np.loadtxt(tum).shape == (n, 8), "frames2tum: not one 8-value row a scan")
+    graph = os.path.join(tmp, "t.graph")
+    run("frames2graph", frames_dir, "-o", graph)
+    g = np.loadtxt(graph)
+    check(g.shape == (n, 7) and np.allclose(g[:, :3], seq_mats[:, :3, 3], atol=1e-6),
+          "frames2graph: positions differ from the frames")
+    conv = os.path.join(tmp, "t.conv")
+    run("convergence", frames_dir, "-s", "5", "-o", conv)
+    hist, _ = frames_io.read_frames(frames_io.frames_path(frames_dir, "005"))
+    check(len(np.loadtxt(conv, ndmin=2)) == len(hist), "convergence: not one row a frame")
+    length = float(re.search(r"trajectory length: ([\d.]+) cm", run("trajectorylength", frames_dir)).group(1))
+    want = float(np.linalg.norm(np.diff(seq_mats[:, :3, 3], axis=0), axis=1).sum())
+    check(abs(length - want) <= 0.01, f"trajectorylength {length} != {want}")
+    T = np.asarray(math3d.euler_to_matrix4(np.array([100.0, -50.0, 20.0]), np.array([0.01, 0.3, -0.02])))
+    tfile = os.path.join(tmp, "T.txt")
+    np.savetxt(tfile, T.reshape(1, 16))
+    tf = os.path.join(tmp, "t_tf")
+    os.makedirs(tf)
+    run("transformframes", frames_dir, tfile, "-o", tf)
+    got = frames_io.final_pose(frames_io.frames_path(tf, "007"))
+    check(np.allclose(got, T @ seq_mats[7], rtol=0, atol=1e-9 * scale), "transformframes: not T @ pose")
+    mf = os.path.join(tmp, "t_mf")
+    run("multframes", frames_dir, tfile, "-o", mf, "--anchor", "3")
+    got = frames_io.final_pose(frames_io.frames_path(mf, "009"))
+    want9 = T @ np.linalg.inv(seq_mats[3]) @ seq_mats[9]
+    check(np.allclose(got, want9, rtol=0, atol=1e-9 * scale), "multframes: not T @ anchor^-1 @ pose")
+    mats_file = os.path.join(tmp, "avg.txt")
+    np.savetxt(mats_file, np.stack([seq_mats[0], seq_mats[0]]).reshape(2, 16))
+    avg = np.array(run("average6dofposes", mats_file).split(), float).reshape(4, 4)
+    check(np.allclose(avg, seq_mats[0], rtol=0, atol=1e-6), "average6dofposes of one pose twice")
+    truth = os.path.join(tmp, "t_truth")
+    _truth_frames(truth, true_mats)
+    res = json_mod.loads(run("ate", frames_dir, truth, "--no-align"))
+    ate = ate_rmse(seq_mats, true_mats)
+    check(abs(res["rmse"] - ate) <= 1e-6, f"ate --no-align {res['rmse']} != {ate}")
+    phase(30, "converters", f"trajectory tools on phase 4's {n} frames in {time.perf_counter() - t_all:.2f} "
+          f"s: round trips pose {errs['pose']:.2e}, kitti {errs['kitti']:.2e}, riegl {errs['riegl']:.2e} "
+          f"relative; trajectorylength {length:.2f} cm; ate --no-align {res['rmse']:.6f} cm = "
+          f"chip_smoke's {ate:.6f}; tum, graph, convergence, transformframes, multframes, "
+          f"average6dofposes checked")
+
+
+def sicp_phase(local0):
+    """Phase 30, sicp: ``sicp_align`` on 10^6 row-matched pairs on the
+    card: bremen scan 0 and its image under a known transform with 1 cm
+    seeded noise, within 0.01 cm / 1e-5 of the transform; the card
+    against the CPU within 1e-3 cm / 1e-6: both reduce a million f32
+    pairs, in two orders (1.22e-4 cm apart on the card, over a bound of
+    1e-4: 16 f32 spacings of the 80 cm translation; PERF.md)."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.io import converters as cv
+
+    rng = np.random.default_rng(CITY_SEED)
+    g = np.asarray(local0, np.float64)
+    T = np.asarray(math3d.euler_to_matrix4(np.array(SICP_T[0]), np.array(SICP_T[1])))
+    loc = np.asarray(math3d.transform3(np.linalg.inv(T), g)) + rng.normal(0, SICP_NOISE_CM, g.shape)
+    cv.sicp_align(g[:1000], loc[:1000], device=CARD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = cv.sicp_align(g, loc, device=CARD)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = cv.sicp_align(g, loc, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    et = float(np.abs(card[:3, 3] - T[:3, 3]).max())
+    er = float(np.abs(card[:3, :3] - T[:3, :3]).max())
+    ct = float(np.abs(card[:3, 3] - cpu[:3, 3]).max())
+    cr = float(np.abs(card[:3, :3] - cpu[:3, :3]).max())
+    phase(30, "converters", f"sicp_align on {len(g)} row-matched pairs ({SICP_NOISE_CM:g} cm noise): "
+          f"card {card_s * 1e3:.1f} ms, CPU {cpu_s * 1e3:.1f} ms; against the known transform "
+          f"{et:.5f} cm / {er:.2e} rot (bound 0.01 / 1e-5); card against CPU {ct:.2e} cm / "
+          f"{cr:.2e} (bound 1e-3 / 1e-6)")
+    check(et <= 0.01 and er <= 1e-5, "sicp: off the known transform")
+    check(ct <= 1e-3 and cr <= 1e-6, "sicp: card and CPU disagree")
+
+
+def features_phase(tmp, scan_dir, idents, true_mats, knn_med):
+    """Phase 30, scan2features on phase 17's first 24 h468 scans (-r 10 -K
+    20): the median normal angle to the corridor's analytic normals no
+    worse than phase 25's knn figure + 0.5 deg; ms a scan with and without
+    the text write."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.cli import convert
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io.scandir import read_scan_dir
+    from tpu3dtk_torch.ops.normals import knn_pca_features
+
+    out = os.path.join(tmp, "features")
+    os.makedirs(out)
+    k12_zero()
+    rc, _text, wall = _cli(convert, ["scan2features", scan_dir, "-r", "10", "-K", str(FEATURES_K), "-o", out])
+    check(rc == 0, f"torchconvert scan2features returned {rc}")
+    angles = []
+    for ident, T in zip(idents, true_mats):
+        f = np.loadtxt(os.path.join(out, f"scan{ident}.feat"))
+        check(f.shape[1] == 7 and bool(np.isfinite(f).all()), f"scan{ident}.feat: not 7 finite columns")
+        angles.append(_ring_angles(f[:, 3:6], f[:, :3], T))
+    med = float(np.median(np.concatenate(angles)))
+    t0 = time.perf_counter()
+    for raw in read_scan_dir(scan_dir, format="uos"):
+        s = Scan.from_raw(raw, device=CARD)
+        s.set_reduction(10.0, 1)
+        knn_pca_features(s.reduced_local(), k=FEATURES_K, device=CARD)
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    n = len(idents)
+    phase(30, "converters", f"scan2features -r 10 -K {FEATURES_K} on {n} h468 scans: {wall / n * 1e3:.1f} "
+          f"ms a scan with the text write, {bare / n * 1e3:.1f} ms without (read, reduction, features); "
+          f"median angle to the corridor's normals {med:.3f} deg (phase 25 knn {knn_med:.3f} + 0.5); "
+          + k12_check("scan2features"))
+    check(med <= knn_med + 0.5, f"scan2features: median angle {med} deg > {knn_med} + 0.5")
+
+
+def balancer_phase(tmp, net):
+    """Phase 30, graphbalancer on bremen.net: the weights on the card's
+    run equal the CPU's (host code in both)."""
+    from tpu3dtk_torch.cli import convert
+
+    files = {}
+    for device in (CARD, "cpu"):
+        files[device] = os.path.join(tmp, f"weights_{device}.txt")
+        rc, text, _s = _cli(convert, ["graphbalancer", net, "-o", files[device], "--device", device])
+        check(rc == 0, f"torchconvert graphbalancer --device {device} returned {rc}")
+    with open(files[CARD], "rb") as a, open(files["cpu"], "rb") as b:
+        w = a.read()
+        check(w == b.read(), "graphbalancer: card and CPU weights differ")
+    phase(30, "converters", f"graphbalancer on bremen.net: {text.strip()}; card file = CPU file")
+
+
+def export_parser_phase(tmp, scan_dir, e57_dir):
+    """Phase 31: ``torchexport -f e57 -r 20 -O 1`` of the 13 registered
+    bremen scans (phase 28's E57 directory, phase 8's frames beside it)
+    into one file (the count is the sum of the per-scan counts; scan 0's
+    points equal its reduced points under its frame within 1e-3 cm); then
+    the native parser on scan 0's text: the same array as ``np.loadtxt``,
+    and a ragged copy through ``read_scan`` keeps exactly the good rows."""
+    import shutil
+
+    import numpy as np
+
+    from tpu3dtk_torch import native
+    from tpu3dtk_torch.cli import export_points
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io.formats import get_format
+    from tpu3dtk_torch.io.scandir import read_scan
+    from tpu3dtk_torch.utils.metrics import REDUCTION, SCAN_LOAD, metrics
+
+    for k in range(CITY_SCANS):
+        shutil.copy(frames_io.frames_path(scan_dir, f"{k:03d}"), e57_dir)
+    out = os.path.join(tmp, "city.pts")
+    metrics.reset()
+    k12_zero()
+    rc, text, wall = _cli(export_points, [e57_dir, "-f", "e57", "-r", "20", "-O", "1", "-o", out])
+    check(rc == 0, f"torchexport returned {rc}")
+    k12_check("torchexport")
+    counts = [int(v) for v in re.findall(r"^scan\d+: (\d+) points", text, re.M)]
+    total = int(re.search(r"wrote (\d+) points", text).group(1))
+    t0 = time.perf_counter()
+    pts = np.loadtxt(out)
+    load_s = time.perf_counter() - t0
+    check(len(counts) == CITY_SCANS and total == sum(counts) == len(pts),
+          f"torchexport: {len(pts)} points written, counts {counts}")
+    s0 = Scan.from_raw(read_scan(e57_dir, "000", get_format("e57")), device=CARD)
+    s0.set_reduction(CITY_VOXEL, 1)
+    s0.set_pose(frames_io.final_pose(frames_io.frames_path(scan_dir, "000")), frames_io.AlgoType.INVALID,
+                record=False)
+    d0 = float(np.abs(pts[: counts[0]] - s0.reduced_global()).max())
+    tim = {k: m.total for k, m in metrics.timers.items()}
+    phase(31, "export", f"torchexport -f e57 -r {CITY_VOXEL:g} -O 1 of {CITY_SCANS} registered scans: wall "
+          f"{wall:.2f} s: read {tim.get(SCAN_LOAD, 0.0):.2f} s, reduction on the card "
+          f"{tim.get(REDUCTION, 0.0):.2f} s, text write {tim.get(export_points.EXPORT_WRITE, 0.0):.2f} "
+          f"s; {total} points = the sum of the per-scan counts; scan 0 against its reduced points "
+          f"under its frame {d0:.2e} cm (bound 1e-3)")
+    check(d0 <= 1e-3, f"torchexport: scan 0 off its reduced points by {d0} cm")
+    src = os.path.join(scan_dir, "scan000.3d")
+    t0 = time.perf_counter()
+    ref = np.loadtxt(src)
+    np_s = time.perf_counter() - t0
+    native.load()
+    t0 = time.perf_counter()
+    nat = native.parse_table(src)
+    nat_s = time.perf_counter() - t0
+    check(np.array_equal(nat, ref), "native parser: not np.loadtxt's array")
+    rag = os.path.join(tmp, "ragged")
+    os.makedirs(rag)
+    shutil.copy(os.path.join(scan_dir, "scan000.pose"), rag)
+    with open(src) as f:
+        lines = f.read().splitlines()
+    keep = np.ones(len(lines), bool)
+    for k in range(0, len(lines), PARSER_BAD_EVERY):
+        lines[k] = lines[k].rsplit(" ", 1)[0] if (k // PARSER_BAD_EVERY) % 2 else "junk"
+        keep[k] = False
+    with open(os.path.join(rag, "scan000.3d"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    t0 = time.perf_counter()
+    raw = read_scan(rag, "000", get_format("uos"))
+    rag_s = time.perf_counter() - t0
+    check(np.array_equal(raw.xyz, ref[keep]), "ragged copy: the kept rows differ from the good rows")
+    phase(31, "parser", f"scan 0's text ({len(ref)} lines): np.loadtxt {np_s:.3f} s, the native parser "
+          f"{nat_s:.3f} s, the same array; a copy with every {PARSER_BAD_EVERY}th line cut short or "
+          f"junk through read_scan in {rag_s:.3f} s: {len(raw.xyz)} rows = the good rows "
+          f"({int((~keep).sum())} dropped); the export read back in {load_s:.2f} s")
 
 
 def main() -> int:
@@ -2817,6 +3527,9 @@ def main() -> int:
             tmp, scan_dir, idents, mats, np.stack(true_mats), odo_mats,
             sum(len(s.reduced_local()) for s in reduced) * 12,
         )
+        trajectory_phase(tmp, out_dir, np.stack(true_mats), mats)
+        condensed = condense_phase(tmp, scan_dir, out_dir, np.stack(true_mats), np.stack(odo_mats),
+                                   ate_rmse(mats, true_mats))
     check(nframes == H468_SCANS - 1, f"{nframes} frames per scan, want {H468_SCANS - 1}")
     check(bool(np.isfinite(mats).all()), "non-finite poses")
     e = rel_trans_err(mats, true_mats)
@@ -2878,6 +3591,7 @@ def main() -> int:
     dir_launches = dir_phases(locals_, true_mats, odo_mats)
     subgraph_launches = subgraph_phase(reduced, true_mats, odo_mats)
     srr_launches = srr_phase()
+    velodyne_launches = velodyne_phase()
     search_phase(reduced, true_mats)
     del reduced, locals_
 
@@ -2900,6 +3614,8 @@ def main() -> int:
         "launches_subgraph": {k: v[0] for k, v in subgraph_launches.items()},
         "launches_srr": srr_launches,
         "launches_bremen": k2["k1_launches"],
+        "launches_scandiff": k2["k1_launches_scandiff"],
+        "launches_velodyne": velodyne_launches,
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2915,6 +3631,8 @@ def main() -> int:
         "window_device_ms": kw_dev_ms,
         "window_bound_ms": w_bound,
         "window_instr_bound_ms": w_instr,
+        **k2["scandiff"],
+        **({"launches_condensed": condensed["launches"]} if condensed["engine"] == "K1" else {}),
     }, {
         "name": "nn_cell_list",
         "route": "cuda",
@@ -2931,6 +3649,9 @@ def main() -> int:
         "instr_bound_ms": k2["instr_bound_ms"],
         "library_ms": None,
         "clamped_device_ms": k2["clamped_device_ms"],
+        "launches_formats_las": k2["launches_formats"]["las"],
+        "launches_formats_e57": k2["launches_formats"]["e57"],
+        **({"launches_condensed": condensed["launches"]} if condensed["engine"] == "K2" else {}),
     }]}))
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

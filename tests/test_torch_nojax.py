@@ -67,6 +67,23 @@ assert a.net == "g.net" and a.iterSLAM == 5 and a.distSLAM == 150.0
 p = slam6d.build_parser()
 a = p.parse_args(["somewhere", "-r", "10", "--device", "cpu"])
 assert a.reduce == 10.0 and a.device == "cpu"
+from tpu3dtk_torch import native
+from tpu3dtk_torch.cli import convert as convert_cli, export_points
+from tpu3dtk_torch.io import condense, converters, e57, las, meshio, ply, png, velodyne
+from tpu3dtk_torch.utils import config
+assert callable(native.parse_table) and callable(config.parse_scan_ranges)
+assert callable(las.write_las) and callable(e57.e57_to_scan) and callable(velodyne.decode_velodyne)
+assert callable(ply.read_ply) and callable(png.read_png) and callable(meshio.write_ply_mesh)
+assert callable(converters.scan_diff) and callable(condense.atomize)
+assert callable(synth.velodyne_capture) and callable(synth.write_velodyne_dir)
+a = convert_cli.build_parser().parse_args(["scandiff", "d", "-d", "25", "--device", "cpu"])
+assert (a.cmd, a.dist, a.device) == ("scandiff", 25.0, "cpu")
+a = convert_cli.build_parser().parse_args(["condense", "d", "--split", "5", "-r", "10", "--use-frames"])
+assert (a.split, a.reduce, a.use_frames, a.device) == (5, 10.0, True, None)
+subs = convert_cli.build_parser()._subparsers._group_actions[0].choices
+assert len(subs) == 21, sorted(subs)
+a = export_points.build_parser().parse_args(["d", "-r", "20", "-O", "0", "--device", "cpu"])
+assert (a.reduce, a.octree, a.device) == (20.0, 0, "cpu")
 bad = [m for m in sys.modules if m == "tpu3dtk" or m.startswith("tpu3dtk.")
        or (m.startswith("jax") and sys.modules[m] is not None)]
 assert not bad, bad
@@ -171,4 +188,21 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
     for cli in (planes, preg6d_cli, calc_normals, scan_red):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([str(tmp_path)])
+    from tpu3dtk_torch.cli import convert as convert_cli, export_points
+    from tpu3dtk_torch.io import condense, converters
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_points.main([str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        converters.scan_diff_found(pts, pts, 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        converters.sicp_align(pts, pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        converters.scan_to_features(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        condense.condense(str(tmp_path), voxel=10.0)
+    np.savetxt(tmp_path / "pairs.txt", np.eye(3) * 100.0)
+    pairs = str(tmp_path / "pairs.txt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert_cli.main(["sicp", "-g", pairs, "-l", pairs])
     assert SequenceRegistration(device="cpu")._device() == torch.device("cpu")

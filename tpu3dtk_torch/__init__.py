@@ -8,8 +8,12 @@ every kernel the JAX package wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
 
 - ``core``   math3d (numpy/torch backends), Scan
-- ``io``     scan directories, formats, .frames, prefetch cache, .oct
-  octree files, ConfigFileHough files
+- ``io``     scan directories, formats (text, LAS/LAZ, E57, velodyne
+  captures, PLY), .frames, prefetch cache, .oct octree files,
+  ConfigFileHough files, PNG and mesh output, the trajectory converters,
+  scan differencing, condense / atomize
+- ``native`` the host C++ text parser (``csrc/fastscan.cpp``) for ragged
+  scan files
 - ``ops``    voxel reduction, brute NN and cell-list NN (each a plain
   torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``),
   k-NN, the four normal estimators, range/box/segment searches, panorama
@@ -20,11 +24,12 @@ kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
   cache, ELCH loop closing, the GraphPipeline, out-of-core streaming,
   subgraph SLAM, semi-rigid line-scan registration, the bf16 ICP harness,
   Hough plane detection (SHT, RHT), plane-based registration (preg6d)
-- ``utils``  named-phase metrics
+- ``utils``  named-phase metrics, key-value config files and scan ranges
 - ``cli``    torchslam (the slam6D-style command; sequential ICP, ``-n`` /
   ``-C`` graph LUM, ``-L``/``-G`` GraphPipeline, ``--cache-mb``,
-  ``--saveOct``/``--loadOct``), torchicpfixpoint, torchplanes,
-  torchplanereg, torchnormals, torchscan_red
+  ``--saveOct``/``--loadOct``; every scan format), torchicpfixpoint,
+  torchplanes, torchplanereg, torchnormals, torchscan_red, torchconvert,
+  torchexport
 
 This package imports neither ``jax`` nor ``tpu3dtk``.
 """

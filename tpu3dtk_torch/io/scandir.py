@@ -17,7 +17,7 @@ from typing import Iterator
 import numpy as np
 
 from .formats import FormatSpec, get_format, parse_scan_text
-from .vfs import vexists, vlistdir, vopen
+from .vfs import split_zip, vexists, vlistdir, vopen
 
 __all__ = ["PointFilter", "RawScan", "read_scan_dir", "read_pose_file", "list_identifiers"]
 
@@ -211,13 +211,22 @@ def list_identifiers(directory: str, spec: FormatSpec, start: int = 0, end: int 
 
 
 def _load_data_file(path: str, spec: FormatSpec) -> np.ndarray:
-    """Whitespace table loader (numpy's C tokenizer).  The JAX package
-    falls back to its native C++ parser for ragged files; that parser is
-    not ported yet (ROADMAP slice D), so such files raise here."""
-    with vopen(path, "rb") as f:
-        for _ in range(spec.skip_header_lines):
-            f.readline()
-        return np.loadtxt(f, dtype=np.float64, ndmin=2)
+    """Whitespace table loader.  ``numpy.loadtxt`` (a C tokenizer) is the
+    first path; the native C++ parser (``tpu3dtk_torch.native``, built
+    at first use) takes the files numpy rejects (ragged rows, stray
+    tokens), as in the JAX package.  A file inside a zip archive has no
+    real path for the parser, so numpy's error stands there."""
+    try:
+        with vopen(path, "rb") as f:
+            for _ in range(spec.skip_header_lines):
+                f.readline()
+            return np.loadtxt(f, dtype=np.float64, ndmin=2)
+    except ValueError:
+        if split_zip(path) is not None:
+            raise  # the native parser wants a real file path
+        from .. import native
+
+        return native.parse_table(path, spec.skip_header_lines)
 
 
 def _read_pose_riegl(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -276,13 +285,27 @@ def read_scan(
     pose_path = os.path.join(
         directory, f"{spec.pose_prefix}{identifier}{spec.pose_suffix}"
     )
-    if spec.binary:
-        raise NotImplementedError(
-            f"binary scan format {spec.binary!r} is not ported yet "
-            "(ROADMAP slice D: io/las, io/velodyne, io/e57)"
-        )
-    raw = _load_data_file(data_path, spec)
-    channels = parse_scan_text(raw, spec)
+    if spec.binary == "las":
+        from .las import read_las
+
+        channels = read_las(data_path)
+        channels["xyz"] = spec.transform(channels["xyz"])
+    elif spec.binary == "velodyne":
+        from .velodyne import read_velodyne
+
+        channels = read_velodyne(data_path)
+        channels["xyz"] = spec.transform(channels["xyz"])
+    elif spec.binary == "e57":
+        from .e57 import read_e57
+
+        channels = {
+            k: v for k, v in read_e57(data_path).items()
+            if not k.startswith("pose_")
+        }
+        channels["xyz"] = spec.transform(channels["xyz"])
+    else:
+        raw = _load_data_file(data_path, spec)
+        channels = parse_scan_text(raw, spec)
     if vexists(pose_path):
         pos, theta = _POSE_READERS[spec.pose_reader](pose_path)
     else:

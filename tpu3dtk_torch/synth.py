@@ -16,6 +16,12 @@ random draws are identical and the pose math is the port's numpy
 Each returns (locals [n][n_pts,3] f32, true_mats, odo_mats).
 :func:`write_scan_dir` stores such a sequence as a uos scan directory;
 :func:`write_net_graph` stores a pose graph as a ``.net`` file.
+
+- :func:`velodyne_capture`: one revolution of an HDL-64E in a box room,
+  ray-cast and packed as the raw ``.bin`` capture ``-f velodyne`` reads
+  (the JAX package has no writer; this one follows the decoder,
+  ``io/velodyne.py``); :func:`synth_velodyne` drives a sensor through
+  such a room and :func:`write_velodyne_dir` stores the captures.
 """
 
 from __future__ import annotations
@@ -25,11 +31,13 @@ import os
 import numpy as np
 
 from .core import math3d
+from .io import velodyne
 from .io.writer import write_pose, write_uos
 
 __all__ = [
     "city_planes", "ring_normals", "synth_city", "synth_linescans", "synth_loop",
-    "synth_ring", "write_net_graph", "write_scan_dir",
+    "synth_ring", "synth_velodyne", "velodyne_capture", "write_net_graph",
+    "write_scan_dir", "write_velodyne_dir",
 ]
 
 # synth_city's blocks: 4 x 4 of CITY_BLOCK cm squares, CITY_PITCH cm apart
@@ -356,3 +364,109 @@ def ring_normals(world, radius=4500.0, half_width=300.0, half_height=600.0, tol=
     n[:, 0], n[:, 2] = w[:, 0] / np.maximum(r, 1e-9), w[:, 2] / np.maximum(r, 1e-9)
     n[flat & ~wall] = [0.0, 1.0, 0.0]
     return n, (wall ^ flat) & ~near
+
+
+# one firing of the raw capture (io/velodyne.py's layout): the block
+# header (0xEEFF upper lasers 0-31, 0xDDFF lower 32-63), the rotational
+# position in 1/100 deg, 32 x (distance in 2 mm LSB, intensity)
+_FIRING = np.dtype([
+    ("head", "<u2"), ("rot", "<u2"),
+    ("ret", [("dist", "<u2"), ("inten", "u1")], (32,)),
+])
+_BLOCK = np.dtype([
+    ("record", "u1", (velodyne.BLOCK_OFFSET,)),  # pcap-style header, skipped
+    ("fire", _FIRING, (12,)),
+    ("status", "u1", (6,)),
+])
+# the decoder's range gates (m, exclusive)
+VELO_MIN_M, VELO_MAX_M = 2.2, 120.0
+# synth_velodyne's room: 20 x 12 x 4 m (uos x, z, y), the floor 180 cm
+# below the sensor's first position
+VELO_ROOM_LO = np.array([-700.0, -180.0, -600.0])
+VELO_ROOM_HI = np.array([1300.0, 220.0, 600.0])
+
+
+def velodyne_capture(pose, lo=VELO_ROOM_LO, hi=VELO_ROOM_HI, intensity=100) -> bytes:
+    """One revolution of an HDL-64E at ``pose`` (4x4, uos frame, cm) inside
+    the box room [lo, hi] (cm), as a raw capture: 360 blocks of 12
+    firings, upper and lower blocks alternating, 2160 rotational
+    positions 1/6 deg apart, 32 lasers a firing (138240 returns at most).
+    Each laser's ray uses the decoder's default calibration and its angle
+    formula (``io/velodyne.py::decode_velodyne``), so the decoded points
+    are the ray's first hit on a face, up to the 2 mm distance LSB.
+    Returns outside the decoder's gates (2.2, 120) m are written as 0."""
+    cal = velodyne.default_calibration()
+    n_fire = velodyne.CIRCLELENGTH * 12
+    k = np.arange(n_fire)
+    upper = k % 2 == 0
+    rot = np.round((k // 2) * 100.0 / 6.0).astype(np.uint16)  # 1/100 deg
+    base = np.where(upper, 0, 32)
+    vert = np.deg2rad(cal[:, 0])[base[:, None] + np.arange(32)[None, :]]  # [F, 32]
+    ctheta = 2.0 * np.pi - np.deg2rad(rot.astype(np.float64) / 100.0)
+    ctheta = np.where(ctheta >= 2.0 * np.pi, 0.0, ctheta)[:, None]
+    # unit ray in the sensor frame, mapped to uos as the decoder maps points
+    d_local = np.stack([
+        np.cos(ctheta) * np.cos(vert), np.sin(vert), -np.sin(ctheta) * np.cos(vert),
+    ], axis=-1)
+    T = np.asarray(pose, np.float64)
+    d = d_local @ T[:3, :3].T
+    o = T[:3, 3]
+    with np.errstate(divide="ignore"):
+        t_face = np.where(d > 0, (np.asarray(hi) - o) / d, (np.asarray(lo) - o) / d)
+    t = np.where(d != 0, t_face, np.inf).min(-1)  # cm to the first face hit
+    lsb = np.round(t / 100.0 / velodyne.METERS_PER_LSB)
+    dist_m = lsb * velodyne.METERS_PER_LSB
+    ok = (dist_m > VELO_MIN_M) & (dist_m < VELO_MAX_M)
+    blocks = np.zeros(velodyne.CIRCLELENGTH, _BLOCK)
+    fire = blocks["fire"].reshape(n_fire)
+    fire["head"] = np.where(upper, 0xEEFF, 0xDDFF)
+    fire["rot"] = rot
+    fire["ret"]["dist"] = np.where(ok, lsb, 0).astype(np.uint16)
+    fire["ret"]["inten"] = np.where(ok, intensity, 0).astype(np.uint8)
+    blocks["fire"] = fire.reshape(velodyne.CIRCLELENGTH, 12)
+    return blocks.tobytes()
+
+
+def synth_velodyne(n_captures=20, step=10.0, yaw_step_deg=0.5, seed=29,
+                   odo_sigma_cm=2.0, odo_sigma_deg=0.3):
+    """A sensor driven through :func:`velodyne_capture`'s room: ``step``
+    cm along its heading and ``yaw_step_deg`` about the vertical (uos y)
+    a capture; odometry accumulates a seeded error on every step (normal,
+    ``odo_sigma_cm`` on x and z, ``odo_sigma_deg`` of yaw).  Returns
+    (captures [n] bytes, true_mats, odo_mats)."""
+    rng = np.random.default_rng(seed)
+    captures, true_mats, odo_mats = [], [], []
+    pos, yaw = np.zeros(3), 0.0
+    opos, oyaw = np.zeros(3), 0.0
+    for i in range(n_captures):
+        if i:
+            fwd = np.array([np.cos(yaw), 0.0, -np.sin(yaw)])
+            ofwd = np.array([np.cos(oyaw), 0.0, -np.sin(oyaw)])
+            pos = pos + step * fwd
+            yaw += np.deg2rad(yaw_step_deg)
+            err = rng.normal(0.0, odo_sigma_cm, 2)
+            opos = opos + step * ofwd + np.array([err[0], 0.0, err[1]])
+            oyaw += np.deg2rad(yaw_step_deg + rng.normal(0.0, odo_sigma_deg))
+        T = np.asarray(math3d.euler_to_matrix4(pos, np.array([0.0, yaw, 0.0]), xp=np))
+        captures.append(velodyne_capture(T))
+        true_mats.append(T)
+        odo_mats.append(np.asarray(
+            math3d.euler_to_matrix4(opos, np.array([0.0, oyaw, 0.0]), xp=np)
+        ))
+    return captures, np.stack(true_mats), np.stack(odo_mats)
+
+
+def write_velodyne_dir(directory: str, captures, poses) -> list[str]:
+    """Write ``scanNNN.bin`` (the raw captures) and ``scanNNN.pose`` (the
+    given 4x4 poses), the layout ``-f velodyne`` reads.  Returns the
+    identifiers."""
+    os.makedirs(directory, exist_ok=True)
+    idents = []
+    for k, (cap, T) in enumerate(zip(captures, poses)):
+        ident = f"{k:03d}"
+        with open(os.path.join(directory, f"scan{ident}.bin"), "wb") as f:
+            f.write(cap)
+        theta, pos = math3d.matrix4_to_euler(np.asarray(T, np.float64))
+        write_pose(os.path.join(directory, f"scan{ident}.pose"), pos, theta)
+        idents.append(ident)
+    return idents
