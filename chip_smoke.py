@@ -200,6 +200,36 @@ paths are K1 or K2, and each phase counts them):
    (= ``np.loadtxt``'s array, both timed) and a copy with every 1000th
    line cut short or junk through ``read_scan`` (the good rows kept).
 
+Slice 9 (mobile mapping and surface reconstruction; the NN calls on these
+paths are K1, and each phase counts K1 and K2):
+
+32. veloslam — ``torchveloslam -f velodyne -r 10 -T 2 --window 3`` on 20
+   HDL-64E captures of phase 29's room with a 450 x 180 x 150 cm box
+   crossing beside the path at 90 cm a capture (``synth.velodyne_mover``);
+   the same with ``-T 0`` and without the box: exit 0, one ICP frame a
+   capture, K1 launches = window-ICP iterations, moving points in all but
+   two of the frames with the box in view, a dynamic track from frame 3;
+   card against CPU on 5 captures at -r 20 (0.5 cm / 1e-3, equal counts);
+   the host union-find's time a frame, K1 at the window's shape.
+33. recon — ``torchrecon`` on phase 4's directory with the truth as
+   .frames: tsdf at voxel 10 on the 468 scans (the volume's bytes; the
+   mesh against the corridor's analytic surface with the reference's
+   half-voxel shift undone: median <= 5 cm, 95% within 10 cm), poisson and
+   imls (voxel 20, -K 12) on 24 scans at -r 20 -m 1200 (their distances
+   printed, the IMLS pairs); the imls and poisson fields and the tsdf
+   volume card against CPU.
+34. people — ``remove_dynamic_points`` on phase 8's city scans with 10
+   person columns a scan (``synth.city_people``): on every 20th point the
+   person and static shares equal the JAX package's
+   (scripts/reference_peopleremover_city.py) for "none" (13 scans) and
+   "normals" (3 scans); on the scans reduced at -r 20 most person points
+   removed; the ray tiles; card against CPU at voxel 20 on 3 scans.
+35. collision — ``detect_collisions`` of an 8192-point vehicle hull along
+   256 poses of a street against the 13 city scans reduced (4M points),
+   four poses into a facade: K1 launches = 256, exactly those collide,
+   hits equal the plain NN's on the card; ``sweep_collisions`` along 64
+   waypoints against numpy; K1's device time at 8192 x 4M.
+
 Phase 3 also times a library yardstick for K1: ``torch.cdist(q,
 m).min(dim=1)`` at the first match's shape in both compute modes (no
 mask; a reference point, not a port).  A line before the last is one
@@ -1553,6 +1583,9 @@ def bremen_phases(dev, params_city):
         chained_match, n=10, label="first bremen match (chained)",
         units=lambda r: chained_match.trips, kernel="K2",
     )
+    # ---- phases 34, 35: people removal and collision on the city --------
+    people_phase(locals_, true_mats)
+    k1_collision, collision_k1 = collision_phase(locals_, true_mats)
     # ---- phases 23, 26, 24: planes, scan_red, planereg on the city ------
     with tempfile.TemporaryDirectory() as tmp:
         scan_dir = os.path.join(tmp, "scans")
@@ -1580,6 +1613,7 @@ def bremen_phases(dev, params_city):
         "ms": ku_ms, "plain_ms": pu_ms, "device_ms": du_ms, "bound_ms": u_bound_ms,
         "bound_by": bound_by, "instr_bound_ms": u_instr_ms, "clamped_device_ms": d_ms,
         "launches_formats": formats, "k1_launches_scandiff": k1_scandiff, "scandiff": scandiff,
+        "k1_launches_collision": k1_collision, "collision": collision_k1,
     }
 
 
@@ -3292,6 +3326,625 @@ def export_parser_phase(tmp, scan_dir, e57_dir):
           f"({int((~keep).sum())} dropped); the export read back in {load_s:.2f} s")
 
 
+# ---- slice 9: mobile mapping and surface reconstruction (phases 32-35) ----
+# Each phase drives its entry point on the card, counts K1 and K2, and
+# compares the card with the CPU on a cut of its data.
+
+# phase 32: torchveloslam on phase 29's room with a car-sized box crossing
+# beside the sensor's path at 90 cm a capture (synth.velodyne_mover)
+VELOSLAM_FLAGS = ["-f", "velodyne", "-r", "10", "--window", "3"]
+VELOSLAM_CPU_CAPTURES = 5  # card against CPU at -r 20
+BOX_SEEN = 100  # raw returns on the box for "the box is in view"
+# phase 33: torchrecon on phase 4's h468 directory (truth .frames)
+RECON_SCANS_FIELD = 24  # poisson and imls on the first 24 scans
+# ... at -r 20 within 12 m of each scanner: ~1.6M IMLS nodes x ~10^5 points
+RECON_FIELD_FLAGS = ["-r", "20", "-m", "1200", "-e", str(RECON_SCANS_FIELD - 1)]
+RECON_CPU_SCANS = 8  # card against CPU: tsdf at voxel 20 on 8 scans
+# synth_ring's corridor: walls at radius 4500 -+ 300 cm, floor and ceiling at -+600
+RING_R = (4200.0, 4800.0)
+RING_Y = 600.0
+RING_BOX = ((-4800.0, -600.0, -4800.0), (4800.0, 600.0, 4800.0))
+# phase 34: people removal on phase 8's city with synth.city_people columns.
+# (person, static) shares the JAX package removes on every 20th point of
+# the phase's scans, on the CPU (scripts/reference_peopleremover_city.py:
+# "none" on the 13 scans, "normals" on scans 0-2; PERF.md)
+PEOPLE_REF = {"none": (0.7124, 0.448051), "normals": (0.5258, 0.073900)}
+PEOPLE_MIN_REMOVED = 0.5  # "most person points": the -r 20 run's "none" on 13 scans
+PEOPLE_VOXEL = 10.0
+PEOPLE_CPU_VOXEL = 20.0  # card against CPU: 3 scans at voxel 20
+# phase 35: collision along a street of phase 8's city
+HULL = (180.0, 150.0, 450.0)  # vehicle hull x (width), y (height), z (length), cm
+HULL_PTS = 8192
+HULL_CLEARANCE = 20.0  # cm above the ground
+COLLISION_POSES = 256
+COLLISION_R = 10.0
+STREET_X = 3650.0  # the street between block columns 0 and 1 (x 3000-4300)
+FACADE_X = 4250.0  # a pose shifted here has its hull 40 cm into the facade at x = 4300
+FACADE_POSES = (23, 24, 102, 186)  # poses whose z lies along a block of column 1
+SWEEP_WAYPOINTS = 64
+SWEEP_R = 120.0
+
+
+def _velo_rows(text):
+    """torchveloslam's per-scan lines: (moving, points, clusters, tracks,
+    dynamic) a scan."""
+    return [tuple(int(v) for v in m) for m in re.findall(
+        r"^scan \d+: moving (\d+)/(\d+) clusters (\d+) tracks (\d+) dynamic (\d+)$", text, re.M)]
+
+
+def veloslam_phase():
+    """Phase 32: ``torchveloslam -f velodyne -r 10 -T 2 --window 3`` on 20
+    HDL-64E captures of phase 29's room with a 450 x 180 x 150 cm box
+    crossing beside the path at 90 cm a capture; the same with ``-T 0``
+    and on the captures without the box.  Gates: exit 0, one ICP-tagged
+    frame a capture, K1 launches = the window-ICP iterations, K2 none;
+    moving points flagged in all but at most two of the frames with the
+    box in view, a dynamic track in some frame >= 3; card against CPU on
+    5 captures at -r 20 (0.5 cm / 1e-3, equal per-frame counts).  Prints
+    the error of each run, the host union-find's time a frame and K1 at
+    the window's shape.  Returns K1's launches on the -T 2 run and K1's
+    numbers at the window."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.cli import veloslam as velo_cli
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.core.scan import Scan
+    from tpu3dtk_torch.io import frames as frames_io
+    from tpu3dtk_torch.io import velodyne
+    from tpu3dtk_torch.io.frames import AlgoType
+    from tpu3dtk_torch.models import segmentation
+    from tpu3dtk_torch.models import veloslam
+    from tpu3dtk_torch.ops import nn as nn_ops
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+    from tpu3dtk_torch.utils.metrics import SCAN_LOAD, metrics
+
+    t_phase = t0 = time.perf_counter()
+    movers = synth.velodyne_mover(VELO_CAPTURES)
+    caps, true_mats, odo_mats = synth.synth_velodyne(n_captures=VELO_CAPTURES, boxes=movers)
+    empty, true2, odo2 = synth.synth_velodyne(n_captures=VELO_CAPTURES)
+    check(np.array_equal(true2, true_mats) and np.array_equal(odo2, odo_mats),
+          "the captures with and without the box have different poses")
+    seen = []
+    for cap, T, (box,) in zip(caps, true_mats, movers):
+        w = np.asarray(math3d.transform3(T, velodyne.decode_velodyne(cap)["xyz"]))
+        seen.append(int(np.all((w >= box[0] - 1.0) & (w <= box[1] + 1.0), axis=1).sum()))
+    in_view = [k for k, n in enumerate(seen) if n >= BOX_SEEN]
+    phase(32, "veloslam", f"{VELO_CAPTURES} captures with the box and {VELO_CAPTURES} without "
+          f"ray-cast in {time.perf_counter() - t0:.2f} s; raw returns on the box a capture "
+          f"{seen}; in view (>= {BOX_SEEN}) in {len(in_view)} captures")
+    eo = rel_trans_err(odo_mats, true_mats)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        box_dir, empty_dir = os.path.join(tmp, "box"), os.path.join(tmp, "empty")
+        synth.write_velodyne_dir(box_dir, caps, odo_mats)
+        synth.write_velodyne_dir(empty_dir, empty, odo_mats)
+        for label, d, tracking in (("box -T 2", box_dir, "2"), ("no box -T 2", empty_dir, "2"),
+                                   ("box -T 0", box_dir, "0")):
+            out = os.path.join(tmp, label.replace(" ", "_"))
+            os.makedirs(out)
+            metrics.reset()
+            k12_zero()
+            rc, text, wall = _cli(velo_cli, [d, *VELOSLAM_FLAGS, "-T", tracking, "--frames-out", out])
+            k1 = nn_cuda.nn_brute_kernel.launches
+            k2 = nn_cell_list_cuda.cell_list_rows_kernel.launches
+            check(rc == 0, f"torchveloslam {label} returned {rc}")
+            rows = _velo_rows(text)
+            check(len(rows) == VELO_CAPTURES, f"torchveloslam {label}: {len(rows)} scan lines")
+            frames = [frames_io.read_frames(frames_io.frames_path(out, f"{k:03d}"))
+                      for k in range(VELO_CAPTURES)]
+            check(all(list(t) == [int(AlgoType.ICP)] for _m, t in frames),
+                  f"torchveloslam {label}: a capture without exactly one ICP frame")
+            mats = np.stack([m[-1] for m, _t in frames])
+            check(bool(np.isfinite(mats).all()), f"torchveloslam {label}: non-finite poses")
+            iters = int(metrics.counters[veloslam.ICP_ITERS].total)
+            check(iters > 0 and k1 == iters and k2 == 0,
+                  f"torchveloslam {label}: K1 launches {k1} != window-ICP iterations {iters} "
+                  f"(K2 {k2})")
+            merge_ms = metrics.timers[segmentation.FH_MERGE].total / VELO_CAPTURES * 1e3
+            e = rel_trans_err(mats, true_mats)
+            runs[label] = dict(rows=rows, mats=mats, k1=k1, e=e)
+            moving = [r[0] / r[1] for r in rows]
+            phase(32, "veloslam", f"torchveloslam {label} on the card: wall {wall:.2f} s (read "
+                  f"{metrics.timers[SCAN_LOAD].total:.2f} s), {iters} window-ICP iterations = K1 "
+                  f"launches {k1}, K2 {k2}; FH union-find {merge_ms:.1f} ms a frame on the host; "
+                  f"points a frame {min(r[1] for r in rows)}-{max(r[1] for r in rows)}, moving share "
+                  f"{min(moving):.3f}-{max(moving):.3f}, clusters {[r[2] for r in rows]}, dynamic "
+                  f"tracks {[r[4] for r in rows]}; relative translation error median "
+                  f"{np.median(e):.4f} cm, max {e.max():.4f}")
+        main = runs["box -T 2"]["rows"]
+        flagged = [k for k in in_view if main[k][0] > 0]
+        check(len(in_view) - len(flagged) <= 2,
+              f"moving points flagged in {len(flagged)} of the {len(in_view)} frames with the box in view")
+        check(any(r[4] > 0 for r in main[3:]), "no dynamic track in frames >= 3")
+        med = {k: float(np.median(v["e"])) for k, v in runs.items()}
+        phase(32, "veloslam", f"moving points flagged in {len(flagged)} of {len(in_view)} frames with "
+              f"the box in view; median relative translation error: box -T 2 {med['box -T 2']:.4f} "
+              f"cm, no box -T 2 {med['no box -T 2']:.4f}, box -T 0 {med['box -T 0']:.4f}, odometry "
+              f"{np.median(eo):.4f}; box against no box {med['box -T 2'] - med['no box -T 2']:+.4f} "
+              "cm (printed, not gated: classify-by-tracking confirms static clusters, the floor's "
+              "laser-ring arcs among them, as dynamic in either run; PERF.md)")
+
+        # card against CPU: the first captures at -r 20
+        cmp = {}
+        for device in (CARD, "cpu"):
+            out = os.path.join(tmp, f"cmp_{device}")
+            os.makedirs(out)
+            argv = [box_dir, "-f", "velodyne", "-r", "20", "-T", "2", "--window", "3", "-e",
+                    str(VELOSLAM_CPU_CAPTURES - 1), "--frames-out", out, "--device", device]
+            rc, text, wall = _cli(velo_cli, argv)
+            check(rc == 0, f"torchveloslam --device {device} returned {rc}")
+            cmp[device] = (_velo_rows(text), np.stack([
+                frames_io.final_pose(frames_io.frames_path(out, f"{k:03d}"))
+                for k in range(VELOSLAM_CPU_CAPTURES)]), wall)
+        (cr, cm, cw), (pr, pm, pw) = cmp[CARD], cmp["cpu"]
+        dt = float(np.abs(cm[:, :3, 3] - pm[:, :3, 3]).max())
+        dr = float(np.abs(cm[:, :3, :3] - pm[:, :3, :3]).max())
+        same = [a[:4] == b[:4] for a, b in zip(cr, pr)]
+        phase(32, "veloslam", f"card against --device cpu on captures 0-{VELOSLAM_CPU_CAPTURES - 1} "
+              f"at -r 20: {cw:.2f} s vs {pw:.2f} s, poses {dt:.4f} cm / {dr:.2e} rot (bound 0.5 cm / "
+              f"1e-3), per-frame counts equal in {sum(same)} of {len(same)} frames")
+        check(dt <= 0.5 and dr <= 1e-3, "torchveloslam: card and CPU poses disagree")
+        check(all(same), f"torchveloslam: card and CPU counts differ: {cr} vs {pr}")
+
+    # K1 at the window's shape: captures 0-2 (every point, as -T 0 keeps
+    # them) against capture 3, in the -T 0 run's poses
+    mats = runs["box -T 0"]["mats"]
+    red = []
+    for k in range(4):
+        s = Scan.from_points(velodyne.decode_velodyne(caps[k])["xyz"], f"{k:03d}", mats[k])
+        s.device = CARD
+        s.set_reduction(10.0, 1)
+        red.append(torch.as_tensor(
+            np.asarray(math3d.transform3(mats[k], s.reduced_local()), np.float32), device=CARD))
+    m = torch.cat(red[:3]).contiguous()
+    q = red[3].contiguous()
+    qm = torch.ones(q.shape[0], dtype=torch.bool, device=CARD)
+    bm = nn_ops.prepare_brute_model(m, torch.ones(m.shape[0], dtype=torch.bool, device=CARD))
+    md2 = 25.0**2
+    k_idx, k_d2, k_found = nn_cuda.nn_brute_kernel(q, qm, bm, None, md2)
+    p_idx, p_d2, p_found = nn_ops.nn_brute(q, qm, bm, None, md2)
+    agree = (k_idx == p_idx).double().mean().item()
+    err = (k_d2 - p_d2).abs().max().item()
+    check(agree >= 0.999 and err <= 1e-2, f"K1 at the veloslam window: agreement {agree}, d2 {err}")
+    check(bool((k_d2[k_found != p_found] == p_d2[k_found != p_found]).all()),
+          "K1 at the veloslam window: found differs off exact ties")
+    d_ms, _api = device_ms(lambda: nn_cuda.nn_brute_kernel(q, qm, bm, None, md2), K1_KERNELS)
+    k_ms = cuda_ms(lambda: nn_cuda.nn_brute_kernel(q, qm, bm, None, md2))
+    p_ms = cuda_ms(lambda: nn_ops.nn_brute(q, qm, bm, None, md2), reps=5)
+    pairs = q.shape[0] * m.shape[0]
+    bound, by, instr = nn_bound(pairs, 13 * q.shape[0] + 29 * m.shape[0] + 12 + 13 * q.shape[0],
+                                LOOP_SLOTS["nn_brute"])
+    phase(32, "veloslam", f"K1 at the window shape {q.shape[0]} x {m.shape[0]} ({pairs:.4g} pairs): "
+          f"device {d_ms:.4f} ms, wrapper {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {bound:.5f} ms "
+          f"({by}), instruction rate {instr:.5f} ms; max |d2 - plain| {err:.2e}")
+    phase(32, "veloslam", f"phase wall {time.perf_counter() - t_phase:.2f} s")
+    return runs["box -T 2"]["k1"], {
+        "veloslam_window_shape": [int(q.shape[0]), int(m.shape[0])],
+        "veloslam_window_device_ms": d_ms, "veloslam_window_ms": k_ms,
+        "veloslam_window_plain_ms": p_ms, "veloslam_window_bound_ms": bound,
+        "veloslam_window_instr_bound_ms": instr, "veloslam_window_max_abs_err": err,
+    }
+
+
+def _read_ply_mesh(path):
+    """(vertices [V,3] f64, faces [F,3]) of a binary PLY triangle mesh
+    (``io.meshio.write_ply_mesh``)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    head, body = data.split(b"end_header\n", 1)
+    nv = int(re.search(rb"element vertex (\d+)", head).group(1))
+    nf = int(re.search(rb"element face (\d+)", head).group(1))
+    v = np.frombuffer(body[: 12 * nv], "<f4").reshape(nv, 3).astype(np.float64)
+    f = np.frombuffer(body[12 * nv:], np.dtype([("n", "u1"), ("i", "<i4", 3)]), count=nf)
+    check(bool((f["n"] == 3).all()), f"{path}: a face that is not a triangle")
+    return v, f["i"]
+
+
+def ring_surface_distance(v):
+    """Distance (cm) of points [V,3] to synth_ring's corridor (walls at
+    radius 4200 / 4800, floor / ceiling at y = -+600) and the mask of
+    points the gate reads: not within 100 cm of a pillar's axis, and not in
+    the floor clutter's band (y in (-590, -420) away from the walls, where
+    the boxes of up to 160 cm stand)."""
+    import numpy as np
+
+    r = np.hypot(v[:, 0], v[:, 2])
+    wall = np.minimum(np.abs(r - RING_R[0]), np.abs(r - RING_R[1]))
+    dist = np.minimum(wall, np.minimum(np.abs(v[:, 1] + RING_Y), np.abs(v[:, 1] - RING_Y)))
+    a = np.arange(0, 2 * np.pi, np.pi / 12)
+    pillars = 4500.0 * np.stack([np.cos(a), np.sin(a)], 1)
+    near = np.zeros(len(v), bool)
+    for p in pillars:
+        near |= ((v[:, [0, 2]] - p) ** 2).sum(1) < 100.0**2
+    clutter = (v[:, 1] > -RING_Y + 10) & (v[:, 1] < -RING_Y + 180) & (wall > 20)
+    return dist, ~near & ~clutter
+
+
+def recon_phase(tmp, scan_dir, idents, true_mats):
+    """Phase 33: ``torchrecon`` on phase 4's h468 directory with the truth
+    as .frames: ``--method tsdf --voxel 10`` on all 468 scans, ``--method
+    poisson`` and ``--method imls --voxel 20 -K 12`` on the first 24 at -r
+    20 -m 1200.  Gates: exit 0, K1 and K2 launch no time, every vertex
+    inside the corridor's box; the tsdf mesh, with the reference's
+    half-voxel shift undone, against the corridor's analytic surface:
+    median <= half a voxel, >= 95% within one voxel (pillars and the floor
+    clutter excluded; poisson's and imls's distances printed: the JAX
+    package misses that gate alike); the imls and poisson fields card
+    against CPU (1e-3 cm, 1e-4 of max |chi|); tsdf card against CPU on 8
+    scans at voxel 20 (sign flips of valid cells <= 1e-4 of the cells,
+    then equal faces and vertices within 1e-3 cm).  Prints the volume's
+    bytes, the IMLS pairs, each wall time."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.cli import recon as recon_cli
+    from tpu3dtk_torch.io.scandir import read_scan_dir
+    from tpu3dtk_torch.models import mesh as mesh_mod
+    from tpu3dtk_torch.models.tsdf import TsdfParams, TsdfVolume
+    from tpu3dtk_torch.utils.metrics import SCAN_LOAD, metrics
+
+    t_phase = time.perf_counter()
+    rdir = os.path.join(tmp, "recon")
+    os.makedirs(rdir)
+    for i in idents:  # phase 4's scans beside the truth's .frames
+        for ext in (".3d", ".pose"):
+            os.symlink(os.path.join(scan_dir, f"scan{i}{ext}"), os.path.join(rdir, f"scan{i}{ext}"))
+    _truth_frames(rdir, true_mats)
+    out = {}
+    for method, argv in (
+        ("tsdf", ["--method", "tsdf", "--voxel", "10"]),
+        ("poisson", ["--method", "poisson", *RECON_FIELD_FLAGS]),
+        ("imls", ["--method", "imls", "--voxel", "20", "-K", "12", *RECON_FIELD_FLAGS]),
+    ):
+        path = os.path.join(tmp, f"{method}.ply")
+        metrics.reset()
+        k12_zero()
+        rc, text, wall = _cli(recon_cli, [rdir, *argv, "-o", path])
+        check(rc == 0, f"torchrecon --method {method} returned {rc}")
+        launches = k12_check(f"torchrecon --method {method}")
+        v, f = _read_ply_mesh(path)
+        check(len(v) > 1000 and len(f) > 1000 and bool(np.isfinite(v).all()),
+              f"torchrecon --method {method}: {len(v)} vertices, {len(f)} faces")
+        check(int(f.min()) >= 0 and int(f.max()) < len(v), f"{method}: face index out of range")
+        if method == "poisson":
+            voxel = float(re.search(r"voxel ([\d.]+) cm", text).group(1))
+        else:
+            voxel = float(argv[argv.index("--voxel") + 1])
+        dist, keep = ring_surface_distance(v)
+        med = float(np.median(dist[keep]))
+        within = float((dist[keep] <= voxel).mean())
+        if method == "tsdf":
+            # the reference's TSDF floors a sample into cell i, whose centre is
+            # origin + (i + 1/2) voxel, and surface nets put cell i at origin + i
+            # voxel: its mesh sits half a voxel low on every axis (ROADMAP.md)
+            raw = f"uncorrected median {med:.3f} cm, {within:.4f} within one voxel; "
+            dist, keep = ring_surface_distance(v + voxel / 2)
+            med = float(np.median(dist[keep]))
+            within = float((dist[keep] <= voxel).mean())
+        check(bool((v >= np.subtract(RING_BOX[0], 5 * voxel)).all()
+                   and (v <= np.add(RING_BOX[1], 5 * voxel)).all()),
+              f"torchrecon --method {method}: a vertex outside the corridor's box")
+        extra = ""
+        if method == "tsdf":
+            m = re.search(r"tsdf volume (\S+) voxels, (\d+) bytes", text)
+            extra = f"; volume {m.group(1)} voxels, {int(m.group(2))} bytes (tsdf + weight)"
+        elif method == "imls":
+            extra = (f"; {re.search(r'imls grid .*', text).group(0)} "
+                     f"(counter {metrics.counters[mesh_mod.IMLS_PAIRS].total:.4g})")
+        else:
+            extra = f"; {re.search(r'poisson grid .*', text).group(0)}"
+        phase(33, "recon", f"torchrecon --method {method} on the card: wall {wall:.2f} s (read "
+              f"{metrics.timers[SCAN_LOAD].total:.2f} s, reconstruction "
+              f"{metrics.timers[recon_cli.RECON].total:.2f} s){extra}; {len(v)} vertices, "
+              f"{len(f)} triangles; {launches}; distance to the corridor over {int(keep.sum())} "
+              f"vertices: {raw if method == 'tsdf' else ''}median {med:.3f} cm, {within:.4f} "
+              f"within one voxel ({voxel:.3f} cm)"
+              f"{' with the half-voxel shift undone' if method == 'tsdf' else ''}")
+        if method == "tsdf":
+            check(med <= voxel / 2 and within >= 0.95,
+                  f"torchrecon --method {method}: median {med} cm, {within} within {voxel} cm")
+        else:
+            phase(33, "recon", f"--method {method}: the distance gate (median <= half a voxel, 95% "
+                  "within one) is printed, not held: the normals both packages estimate face a "
+                  "point 10 km above the cloud, which leaves the walls' normals to the sign of "
+                  "their noisy vertical component, and the JAX package misses it alike "
+                  "(scripts/reference_recon_h468.py; PERF.md)")
+        out[method] = (wall, len(v), len(f))
+
+    # card against CPU: the imls and poisson fields on every 16th point of
+    # scans 0-1, with normals estimated once on the card and given to both
+    pts = np.concatenate([
+        np.asarray(raw.xyz, np.float64) @ T[:3, :3].T + T[:3, 3]
+        for raw, T in zip(read_scan_dir(rdir, format="uos", end=1), true_mats[:2])
+    ])[::16].astype(np.float32)
+    nrm = mesh_mod._normals_for(pts, 12, torch.device(CARD)).cpu().numpy()
+    fields = {}
+    for device in (CARD, "cpu"):
+        t0 = time.perf_counter()
+        f_imls, v_imls, _o, _vx = mesh_mod.imls_field(pts, nrm, mesh_mod.MeshParams(voxel=40.0),
+                                                      device=device)
+        chi, occ, _o, _vx = mesh_mod.poisson_field(pts, nrm, mesh_mod.PoissonParams(), device=device)
+        fields[device] = [x.cpu().numpy() for x in (f_imls, v_imls, chi, occ)]
+        fields[device].append(time.perf_counter() - t0)
+    (gf, gv, gc, go, gs), (cf, cv, cc, co, cs) = fields[CARD], fields["cpu"]
+    d_imls = float(np.abs(gf - cf)[gv & cv].max())
+    d_chi = float(np.abs(gc - cc).max() / np.abs(cc).max())
+    d_occ = float(np.abs(go - co).max())
+    phase(33, "recon", f"imls and poisson fields, card against CPU on {len(pts)} points of scans "
+          f"0-1: {gs:.2f} s vs {cs:.2f} s; imls {d_imls:.2e} cm apart (bound 1e-3), valid masks "
+          f"differ in {int((gv != cv).sum())} of {gv.size} nodes; chi {d_chi:.2e} of max |chi| "
+          f"apart (bound 1e-4), occupancy {d_occ:.2e}")
+    check(d_imls <= 1e-3 and int((gv != cv).sum()) <= 1e-4 * gv.size,
+          "imls field: card and CPU disagree")
+    check(d_chi <= 1e-4 and d_occ <= 1e-4, "poisson field: card and CPU disagree")
+
+    # card against CPU: tsdf on the first scans at voxel 20, the volumes compared
+    scans = []
+    for raw in read_scan_dir(rdir, format="uos", end=RECON_CPU_SCANS - 1):
+        scans.append((raw, np.asarray(true_mats[len(scans)])))
+    vols = {}
+    allg = np.concatenate([(r.xyz @ T[:3, :3].T + T[:3, 3]) for r, T in scans])
+    for device in (CARD, "cpu"):
+        t0 = time.perf_counter()
+        vol = TsdfVolume.for_bounds(allg.min(0), allg.max(0),
+                                    TsdfParams(voxel=20.0, truncation=60.0), device=device)
+        for raw, T in scans:
+            vol.integrate(raw.xyz, T)
+        mesh = vol.extract_mesh()
+        if device == CARD:
+            torch.cuda.synchronize()
+        vols[device] = (vol, mesh, time.perf_counter() - t0)
+    (gv, gmesh, gs), (cv, cmesh, cs) = vols[CARD], vols["cpu"]
+    gt, ct = gv.tsdf.cpu(), cv.tsdf
+    valid = (gv.weight.cpu() > 0) | (cv.weight > 0)
+    flips = int((((gt < 0) != (ct < 0)) & valid).sum())
+    dt = float((gt - ct).abs().max())
+    dw = float((gv.weight.cpu() - cv.weight).abs().max())
+    cells = gt.numel()
+    msg = (f"tsdf card against CPU on {RECON_CPU_SCANS} scans at voxel 20 ({cells} voxels): "
+           f"{gs:.2f} s vs {cs:.2f} s; tsdf {dt:.2e}, weight {dw:.2e} apart; sign flips of "
+           f"valid cells {flips} (bound {1e-4 * cells:.0f})")
+    check(flips <= 1e-4 * cells, "tsdf: card and CPU signs disagree in too many cells")
+    if flips == 0:
+        same = len(gmesh[1]) == len(cmesh[1])
+        dv = float(np.abs(gmesh[0] - cmesh[0]).max()) if same and len(gmesh[0]) == len(cmesh[0]) \
+            else float("inf")
+        msg += f"; faces {len(gmesh[1])} vs {len(cmesh[1])}, vertices within {dv:.2e} cm"
+        check(same and dv <= 1e-3, "tsdf: card and CPU meshes disagree")
+    phase(33, "recon", msg)
+    phase(33, "recon", f"phase wall {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+def _city_reduced(locals_, true_mats, extra=None):
+    """The city scans (raw, local) with ``extra`` world points added a scan,
+    reduced on the card (-r 20 -O 1) and put in the world frame (f64)."""
+    import numpy as np
+
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.core.scan import Scan
+
+    out = []
+    for k, (loc, T) in enumerate(zip(locals_, true_mats)):
+        T = np.asarray(T)
+        raw = loc if extra is None else np.concatenate(
+            [loc, np.asarray(math3d.transform3(np.linalg.inv(T), extra[k]), np.float32)])
+        s = Scan.from_points(raw, f"{k:03d}", T)
+        s.device = CARD
+        s.set_reduction(CITY_VOXEL, 1)
+        out.append(np.asarray(math3d.transform3(T, s.reduced_local())))
+    return out
+
+
+def people_phase(locals_, true_mats):
+    """Phase 34: ``remove_dynamic_points`` on phase 8's 13 city scans with
+    10 person columns (40 x 40 x 180 cm, 1500 points each) added to every
+    raw scan at places drawn anew a scan (``synth.city_people``).  First on
+    every 20th point of those scans, the inputs of
+    scripts/reference_peopleremover_city.py: the person and static shares
+    removed within 1e-3 of the JAX package's there ("none" on the 13
+    scans, "normals" on scans 0-2, voxel 10).  Then on the scans reduced
+    on the card at -r 20, the same two runs: most person points removed by
+    "none" (the static share printed: PERF.md).  K1 and K2 launch no time;
+    card against CPU on 3 scans at voxel 20 (keep masks differing in
+    fewer than 1e-4 of the points).  Prints the ray tiles."""
+    import numpy as np
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.models import peopleremover as pr
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import reference_peopleremover_city as ref
+
+    t_phase = t0 = time.perf_counter()
+    people = synth.city_people(true_mats)
+    world = _city_reduced(locals_, true_mats, [p for _b, p in people])
+    is_person = []
+    for w, (boxes, _p) in zip(world, people):
+        m = np.zeros(len(w), bool)
+        for lo, hi in boxes:
+            m |= np.all((w >= lo - 1.0) & (w <= hi + 1.0), axis=1) & (w[:, 1] > 3.0)
+        is_person.append(m)
+    origins = [np.asarray(T)[:3, 3] for T in true_mats]
+    ref_pts, ref_origins, ref_person = ref.scene(locals_, true_mats, people)
+    phase(34, "people", f"{len(world)} city scans with {len(people[0][0])} person columns each, "
+          f"reduced on the card in {time.perf_counter() - t0:.2f} s: {sum(map(len, world))} points, "
+          f"{sum(int(m.sum()) for m in is_person)} on persons; the reference's every "
+          f"{ref.STRIDE}th point: {sum(map(len, ref_pts))}, {sum(int(m.sum()) for m in ref_person)}")
+
+    def run(label, pts, org, person, mode, voxel):
+        metrics.reset()
+        k12_zero()
+        t0 = time.perf_counter()
+        keep = pr.remove_dynamic_points(pts, org, pr.PeopleRemoverParams(
+            voxel_size=voxel, maxrange_method=mode), device=CARD)
+        wall = time.perf_counter() - t0
+        launches = k12_check(f"remove_dynamic_points {mode}")
+        rp = float(np.mean(np.concatenate([~k[m] for k, m in zip(keep, person)])))
+        rs = float(np.mean(np.concatenate([~k[~m] for k, m in zip(keep, person)])))
+        phase(34, "people", f"{label}, maxrange {mode} on {len(pts)} scans at voxel {voxel}: "
+              f"{wall:.2f} s, {int(metrics.counters[pr.RAY_TILES].total)} ray tiles of at most "
+              f"{pr._TILE_SAMPLES['cuda']} samples; person points removed {rp:.4f}, static "
+              f"points removed {rs:.6f}; {launches}")
+        return rp, rs
+
+    shares = {}
+    for mode, n in (("none", len(world)), ("normals", 3)):
+        rp, rs = run(f"the reference's points", ref_pts[:n], ref_origins[:n], ref_person[:n], mode,
+                     ref.VOXEL)
+        want_p, want_s = PEOPLE_REF[mode]
+        check(abs(rp - want_p) <= 1e-3 and abs(rs - want_s) <= 1e-3,
+              f"maxrange {mode}: shares {rp}, {rs} against the JAX package's {want_p}, {want_s}")
+        shares[mode] = run("-r 20", world[:n], origins[:n], is_person[:n], mode, PEOPLE_VOXEL)
+    check(shares["none"][0] >= PEOPLE_MIN_REMOVED,
+          f"maxrange none: {shares['none'][0]} of the person points removed")
+
+    # card against CPU: 3 scans at voxel 20
+    p = pr.PeopleRemoverParams(voxel_size=PEOPLE_CPU_VOXEL)
+    t0 = time.perf_counter()
+    card = pr.remove_dynamic_points(world[:3], origins[:3], p, device=CARD)
+    c_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = pr.remove_dynamic_points(world[:3], origins[:3], p, device="cpu")
+    p_s = time.perf_counter() - t0
+    diff = sum(int((a != b).sum()) for a, b in zip(card, cpu))
+    total = sum(len(a) for a in card)
+    phase(34, "people", f"card against CPU on 3 scans at voxel {PEOPLE_CPU_VOXEL}: {c_s:.2f} s vs "
+          f"{p_s:.2f} s; keep masks differ in {diff} of {total} points (bound {1e-4 * total:.0f})")
+    check(diff <= 1e-4 * total, "remove_dynamic_points: card and CPU keep masks disagree")
+    phase(34, "people", f"phase wall {time.perf_counter() - t_phase:.2f} s")
+    return shares
+
+
+def _hull(rng):
+    """HULL_PTS points on the faces of a HULL-sized box centred on the
+    origin (the vehicle's frame: x across, y up, z along)."""
+    import numpy as np
+
+    half = np.asarray(HULL) / 2
+    face = rng.integers(0, 6, HULL_PTS)
+    p = rng.uniform(-1, 1, (HULL_PTS, 3)) * half
+    axis = face // 2
+    p[np.arange(HULL_PTS), axis] = np.where(face % 2 == 0, -1.0, 1.0) * half[axis]
+    return p.astype(np.float32)
+
+
+def collision_phase(locals_, true_mats):
+    """Phase 35: ``detect_collisions`` of a 450 x 180 x 150 cm vehicle hull
+    (8192 points) against the 13 city scans in their true poses, reduced
+    on the card (-r 20), along 256 poses down the street between block
+    columns 0 and 1, four of them shifted 40 cm into the facade at x =
+    4300; radius 10 cm.  Gates: K1 launches = 256, K2 none; exactly the
+    facade poses collide; hit counts equal to the plain ``nn_brute`` on
+    the card at the facade poses and every 32nd pose, but for pairs within
+    1e-2 cm² of r².  Then ``sweep_collisions`` along 64 waypoints of the
+    street's centre line against a numpy check (f64; points within 1 cm²
+    of r² excluded: f32 coordinates of 10^4 cm).  Prints K1 at 8192 x
+    the environment."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.models import collision
+    from tpu3dtk_torch.ops import nn as nn_ops
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+
+    t_phase = t0 = time.perf_counter()
+    env = np.concatenate(_city_reduced(locals_, true_mats)).astype(np.float32)
+    hull = _hull(np.random.default_rng(35))
+    zs = np.linspace(1000.0, 12000.0, COLLISION_POSES)
+    xs = np.full(COLLISION_POSES, STREET_X)
+    xs[list(FACADE_POSES)] = FACADE_X
+    y = HULL_CLEARANCE + HULL[1] / 2
+    poses = np.stack([np.asarray(math3d.euler_to_matrix4(np.array([x, y, z]), np.zeros(3), xp=np))
+                      for x, z in zip(xs, zs)])
+    phase(35, "collision", f"environment {len(env)} points (13 city scans reduced on the card), hull "
+          f"{HULL_PTS} points, {COLLISION_POSES} poses, built in {time.perf_counter() - t0:.2f} s")
+    k12_zero()
+    t0 = time.perf_counter()
+    colliding, hits = collision.detect_collisions(env, hull, poses,
+                                                  collision.CollisionParams(radius=COLLISION_R),
+                                                  device=CARD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = nn_cuda.nn_brute_kernel.launches
+    k2 = nn_cell_list_cuda.cell_list_rows_kernel.launches
+    check(k1 == COLLISION_POSES and k2 == 0, f"detect_collisions: K1 launches {k1}, K2 {k2}")
+    got = sorted(np.flatnonzero(colliding).tolist())
+    check(got == sorted(FACADE_POSES), f"detect_collisions: poses {got} collide, want {FACADE_POSES}")
+
+    # the plain brute NN on the card at the facade poses and every 32nd
+    envt = torch.as_tensor(env, device=CARD)
+    bm = nn_ops.prepare_brute_model(envt, torch.ones(len(env), dtype=torch.bool, device=CARD))
+    hullt = torch.as_tensor(hull, device=CARD)
+    hm = torch.ones(HULL_PTS, dtype=torch.bool, device=CARD)
+    r2 = float(np.float32(COLLISION_R**2))
+    checked = sorted(set(FACADE_POSES) | set(range(0, COLLISION_POSES, 32)))
+    band = 0
+    for i in checked:
+        moved = math3d.transform3(torch.as_tensor(poses[i], dtype=torch.float32, device=CARD),
+                                  hullt).to(torch.float32).contiguous()
+        _, p_d2, p_found = nn_ops.nn_brute(moved, hm, bm, None, r2)
+        _, k_d2, k_found = nn_cuda.nn_brute_kernel(moved, hm, bm, None, r2)
+        off = k_found != p_found
+        near = (p_d2 - r2).abs() <= 1e-2
+        check(bool(near[off].all()), f"pose {i}: K1 and plain disagree off the r² band")
+        band += int(off.sum())
+        check(abs(int(p_found.sum()) - int(hits[i])) <= int(off.sum()),
+              f"pose {i}: {hits[i]} hits against the plain's {int(p_found.sum())}")
+    q = math3d.transform3(torch.as_tensor(poses[0], dtype=torch.float32, device=CARD),
+                          hullt).to(torch.float32).contiguous()
+    # a call outlasts its launch by ~10 ms: the device time of calls queued
+    # back to back between two CUDA events
+    d_ms = burst_ms(lambda: nn_cuda.nn_brute_kernel(q, hm, bm, None, r2), reps=10)
+    k_ms = cuda_ms(lambda: nn_cuda.nn_brute_kernel(q, hm, bm, None, r2), reps=5)
+    p_ms = cuda_ms(lambda: nn_ops.nn_brute(q, hm, bm, None, r2), reps=3, warmup=1)
+    pairs = HULL_PTS * len(env)
+    bound, by, instr = nn_bound(pairs, 13 * HULL_PTS + 29 * len(env) + 12 + 13 * HULL_PTS,
+                                LOOP_SLOTS["nn_brute"])
+    phase(35, "collision", f"detect_collisions on the card: {wall:.2f} s for {COLLISION_POSES} poses, "
+          f"K1 launches {k1} = poses, K2 {k2}; colliding poses {got} = the facade poses; hits "
+          f"{[int(hits[i]) for i in FACADE_POSES]} there, 0 elsewhere; equal to the plain brute NN "
+          f"at {len(checked)} poses ({band} pairs in the r² +- 1e-2 band); K1 at {HULL_PTS} x "
+          f"{len(env)} ({pairs:.4g} pairs): device {d_ms:.4f} ms (CUDA events, calls back to "
+          f"back), wrapper {k_ms:.4f} ms, plain "
+          f"{p_ms:.2f} ms, bound "
+          f"{bound:.5f} ms ({by}), instruction rate {instr:.5f} ms")
+
+    # the swept path along the street's centre line
+    way = np.stack([np.full(SWEEP_WAYPOINTS, STREET_X), np.full(SWEEP_WAYPOINTS, y),
+                    np.linspace(1000.0, 12000.0, SWEEP_WAYPOINTS)], 1)
+    t0 = time.perf_counter()
+    mask, n = collision.sweep_collisions(env, way, SWEEP_R, device=CARD)
+    s_wall = time.perf_counter() - t0
+    # only points in the polyline's box grown by r can lie within r of it
+    near = np.all((env >= way.min(0) - SWEEP_R - 1.0) & (env <= way.max(0) + SWEEP_R + 1.0), axis=1)
+    e64 = env[near].astype(np.float64)
+    d2 = np.full(len(env), np.inf)
+    d2n = d2[near]
+    for a, b in zip(way[:-1], way[1:]):
+        seg = b - a
+        t = np.clip((e64 - a) @ seg / (seg @ seg), 0.0, 1.0)
+        d2n = np.minimum(d2n, ((e64 - (a + t[:, None] * seg)) ** 2).sum(1))
+    d2[near] = d2n
+    want = d2 < SWEEP_R**2
+    off = mask != want
+    check(bool((np.abs(d2[off] - SWEEP_R**2) <= 1.0).all()), "sweep_collisions: masks differ off the band")
+    phase(35, "collision", f"sweep_collisions along {SWEEP_WAYPOINTS} waypoints, r {SWEEP_R} cm: "
+          f"{s_wall:.2f} s, {n} points hit (numpy {int(want.sum())}, {int(off.sum())} differ within "
+          f"1 cm² of r²)")
+    phase(35, "collision", f"phase wall {time.perf_counter() - t_phase:.2f} s")
+    return k1, {"collision_shape": [HULL_PTS, int(len(env))], "collision_device_ms": d_ms,
+                "collision_ms": k_ms,
+                "collision_plain_ms": p_ms, "collision_bound_ms": bound,
+                "collision_instr_bound_ms": instr}
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
@@ -3530,6 +4183,7 @@ def main() -> int:
         trajectory_phase(tmp, out_dir, np.stack(true_mats), mats)
         condensed = condense_phase(tmp, scan_dir, out_dir, np.stack(true_mats), np.stack(odo_mats),
                                    ate_rmse(mats, true_mats))
+        recon_phase(tmp, scan_dir, idents, true_mats)
     check(nframes == H468_SCANS - 1, f"{nframes} frames per scan, want {H468_SCANS - 1}")
     check(bool(np.isfinite(mats).all()), "non-finite poses")
     e = rel_trans_err(mats, true_mats)
@@ -3592,6 +4246,7 @@ def main() -> int:
     subgraph_launches = subgraph_phase(reduced, true_mats, odo_mats)
     srr_launches = srr_phase()
     velodyne_launches = velodyne_phase()
+    veloslam_launches, veloslam_k1 = veloslam_phase()
     search_phase(reduced, true_mats)
     del reduced, locals_
 
@@ -3616,6 +4271,9 @@ def main() -> int:
         "launches_bremen": k2["k1_launches"],
         "launches_scandiff": k2["k1_launches_scandiff"],
         "launches_velodyne": velodyne_launches,
+        "launches_veloslam": veloslam_launches,
+        "launches_collision": k2["k1_launches_collision"],
+        "launches_recon_people": 0,
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -3632,6 +4290,8 @@ def main() -> int:
         "window_bound_ms": w_bound,
         "window_instr_bound_ms": w_instr,
         **k2["scandiff"],
+        **veloslam_k1,
+        **k2["collision"],
         **({"launches_condensed": condensed["launches"]} if condensed["engine"] == "K1" else {}),
     }, {
         "name": "nn_cell_list",
@@ -3651,6 +4311,7 @@ def main() -> int:
         "clamped_device_ms": k2["clamped_device_ms"],
         "launches_formats_las": k2["launches_formats"]["las"],
         "launches_formats_e57": k2["launches_formats"]["e57"],
+        "launches_slice9": 0,
         **({"launches_condensed": condensed["launches"]} if condensed["engine"] == "K2" else {}),
     }]}))
     print(smi_line, flush=True)

@@ -1,5 +1,6 @@
 """The port runs without JAX: with ``import jax`` made impossible, the
-package, its slice modules and the CLI parser still import.  Without a
+package, its slice modules, the CLI parsers and the interop converters
+still import and work.  Without a
 CUDA card the package's default device raises: the CPU is only used
 when it is asked for."""
 
@@ -84,6 +85,31 @@ subs = convert_cli.build_parser()._subparsers._group_actions[0].choices
 assert len(subs) == 21, sorted(subs)
 a = export_points.build_parser().parse_args(["d", "-r", "20", "-O", "0", "--device", "cpu"])
 assert (a.reduce, a.octree, a.device) == (20.0, 0, "cpu")
+from tpu3dtk_torch.cli import recon as recon_cli, veloslam as velo_cli
+from tpu3dtk_torch.models import collision, mesh, peopleremover, segmentation, tracking, tsdf
+from tpu3dtk_torch.models import veloslam
+from tpu3dtk_torch.ops import surfacenets
+assert callable(segmentation.graph_cut_segmentation) and callable(tracking.MultiObjectTracker)
+assert callable(veloslam.VeloSlam) and callable(surfacenets.surface_nets)
+assert callable(tsdf.TsdfVolume.for_bounds) and callable(mesh.reconstruct_poisson)
+assert callable(peopleremover.remove_dynamic_points) and callable(collision.sweep_collisions)
+assert callable(synth.velodyne_mover)
+a = velo_cli.build_parser().parse_args(["d", "-f", "velodyne", "-T", "0", "--window", "4", "--device", "cpu"])
+assert (a.format, a.tracking, a.window, a.dist, a.device) == ("velodyne", 0, 4, 25.0, "cpu")
+a = recon_cli.build_parser().parse_args(["d", "--method", "tsdf", "--voxel", "8", "-K", "10", "--device", "cpu"])
+assert (a.method, a.voxel, a.knearest, a.trunc, a.device) == ("tsdf", 8.0, 10, -1.0, "cpu")
+assert interop.velo_params_from({"pad_multiple": 4096, "tracking": 1}).tracking == 1
+assert interop.fh_params_from({"k": 6}).k == 6 and interop.tracker_params_from({}).max_misses == 3
+assert interop.tsdf_params_from({"voxel": 8.0}).voxel == 8.0
+assert interop.mesh_params_from({"k": 9}).k == 9 and interop.poisson_params_from({"grid": 32}).grid == 32
+assert interop.people_remover_params_from({"maxrange_method": "normals"}).maxrange_method == "normals"
+assert interop.collision_params_from({"radius": 5.0}).radius == 5.0
+trk = interop.tracker_from_numpy({"params": {}, "next_id": 3, "tracks": []})
+assert trk._next_id == 3 and trk.tracks == []
+import numpy as np
+vol = interop.tsdf_volume_from_numpy({"params": {}, "origin": np.zeros(3), "dims": (2, 2, 2),
+                                      "tsdf": np.ones((2, 2, 2)), "weight": np.zeros((2, 2, 2))})
+assert vol.dims == (2, 2, 2) and str(vol.device) == "cpu"
 bad = [m for m in sys.modules if m == "tpu3dtk" or m.startswith("tpu3dtk.")
        or (m.startswith("jax") and sys.modules[m] is not None)]
 assert not bad, bad
@@ -205,4 +231,24 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
     pairs = str(tmp_path / "pairs.txt")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert_cli.main(["sicp", "-g", pairs, "-l", pairs])
+    from tpu3dtk_torch.cli import recon as recon_cli, veloslam as velo_cli
+    from tpu3dtk_torch.models import collision, mesh, peopleremover, segmentation, tsdf, veloslam
+    from tpu3dtk_torch.ops import surfacenets
+
+    for fn in (
+        lambda: segmentation.fh_segmentation(pts),
+        lambda: segmentation.region_growing_segmentation(pts),
+        lambda: veloslam.VeloSlam().process_scan(two[0]),
+        lambda: surfacenets.surface_nets(np.ones((2, 2, 2))),
+        lambda: tsdf.TsdfVolume(np.zeros(3), (2, 2, 2)),
+        lambda: mesh.imls_field(pts, pts),
+        lambda: mesh.poisson_field(pts, pts),
+        lambda: peopleremover.remove_dynamic_points([pts], [np.zeros(3)]),
+        lambda: collision.detect_collisions(pts, pts, np.eye(4)[None]),
+        lambda: collision.sweep_collisions(pts, pts, 1.0),
+        lambda: velo_cli.main([str(tmp_path)]),
+        lambda: recon_cli.main([str(tmp_path)]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
     assert SequenceRegistration(device="cpu")._device() == torch.device("cpu")

@@ -82,3 +82,31 @@ def test_synth_linescans_equals_test_srr():
     np.testing.assert_allclose(true_mats, true_poses, rtol=0, atol=1e-12)
     np.testing.assert_allclose(odo_mats, ls.poses_org, rtol=0, atol=1e-12)
     assert ls.masks.all()
+
+
+def test_velodyne_box_changes_only_the_returns_it_blocks():
+    """A box obstacle changes exactly the returns whose ray hits it first:
+    those come back shorter and on the box's faces; every other return is
+    byte-identical to the capture of the empty room."""
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.io import velodyne
+
+    T = np.asarray(math3d.euler_to_matrix4(np.array([30.0, 0.0, -20.0]),
+                                           np.array([0.0, 0.3, 0.0]), xp=np))
+    (box,) = synth.velodyne_mover(3)[2]
+    empty = synth.velodyne_capture(T)
+    boxed = synth.velodyne_capture(T, boxes=[box])
+    ret = lambda cap: np.frombuffer(cap, synth._BLOCK)["fire"]["ret"]  # noqa: E731
+    a, b = ret(empty), ret(boxed)
+    changed = a["dist"] != b["dist"]
+    assert changed.sum() > 1000
+    assert (b["dist"][changed] < a["dist"][changed]).all()
+    np.testing.assert_array_equal(a[~changed], b[~changed])
+    # the changed returns decode onto the box's faces (2 mm LSB)
+    xyz = velodyne.decode_velodyne(boxed)["xyz"]
+    w = np.asarray(math3d.transform3(T, xyz))
+    lo, hi = box
+    on_box = np.all((w >= lo - 0.3) & (w <= hi + 0.3), axis=1)
+    face = np.minimum(np.abs(w - lo), np.abs(w - hi)).min(1)
+    assert on_box.sum() == changed.sum()
+    assert face[on_box].max() <= 0.3

@@ -17,19 +17,22 @@ kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
 - ``ops``    voxel reduction, brute NN and cell-list NN (each a plain
   torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``),
   k-NN, the four normal estimators, range/box/segment searches, panorama
-  projections (host numpy)
+  projections (host numpy), surface nets (on the field's device)
 - ``models`` minimizers, ICP (while-style loop, the chained cell-list
   engine, loop-closure windows), sequential registration, LUM graph
   relaxation (on the device and the host path), the correspondence
   cache, ELCH loop closing, the GraphPipeline, out-of-core streaming,
   subgraph SLAM, semi-rigid line-scan registration, the bf16 ICP harness,
-  Hough plane detection (SHT, RHT), plane-based registration (preg6d)
+  Hough plane detection (SHT, RHT), plane-based registration (preg6d),
+  segmentation (FH, region growing, graph cut), the Kalman + Hungarian
+  tracker, veloslam, TSDF fusion, IMLS and Poisson meshing, people
+  removal, collision detection
 - ``utils``  named-phase metrics, key-value config files and scan ranges
 - ``cli``    torchslam (the slam6D-style command; sequential ICP, ``-n`` /
   ``-C`` graph LUM, ``-L``/``-G`` GraphPipeline, ``--cache-mb``,
   ``--saveOct``/``--loadOct``; every scan format), torchicpfixpoint,
   torchplanes, torchplanereg, torchnormals, torchscan_red, torchconvert,
-  torchexport
+  torchexport, torchveloslam, torchrecon
 
 This package imports neither ``jax`` nor ``tpu3dtk``.
 """

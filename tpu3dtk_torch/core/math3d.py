@@ -42,6 +42,8 @@ __all__ = [
     "matrix_to_pose",
     "rad",
     "deg",
+    "fma_f32",
+    "norm3_f32",
 ]
 
 
@@ -304,3 +306,22 @@ def matrix_to_pose(T, xp=None):
     xp = _resolve(xp, T)
     theta, pos = matrix4_to_euler(T, xp)
     return pos, deg(theta, xp)
+
+
+def fma_f32(a, b, c):
+    """a·b + c for f32 tensors, rounded once to f32: the fused multiply-add
+    XLA emits for a product feeding a sum, so elementwise formulas of the
+    JAX package round as they do there.  The f32 product is exact in f64;
+    the f64 sum is rounded to f32 (a double rounding, which differs from
+    one fused rounding only in halfway cases)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def norm3_f32(v):
+    """|v| over the last axis of f32 [..., 3], rounded as
+    ``jnp.linalg.norm`` rounds on XLA: sqrt(fma(z, z, fma(y, y, x·x))).
+    The square root is taken in f64 and rounded to f32 (correctly
+    rounded; torch's f32 ``sqrt`` on the CPU is not, in ~0.7% of
+    values)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.sqrt(fma_f32(z, z, fma_f32(y, y, x * x)).double()).float()

@@ -28,6 +28,15 @@ dropping the fields that only exist for XLA (shape buckets, hashed
 grids, meshes, the segmented loop) and refusing unknown ones;
 :func:`line_scan_set_from_numpy` rebuilds an ``srr.LineScanSet``;
 :func:`planes_from_numpy` rebuilds ``shapes.Plane`` lists.
+
+Slice 9's models: :func:`fh_params_from`, :func:`velo_params_from`
+(``pad_multiple`` dropped: the port uploads clouds unpadded),
+:func:`tracker_params_from`, :func:`tsdf_params_from`,
+:func:`mesh_params_from`, :func:`poisson_params_from`,
+:func:`people_remover_params_from` and :func:`collision_params_from`
+(``chunk`` dropped) map the dataclasses; :func:`tracker_from_numpy` rebuilds a
+``tracking.MultiObjectTracker`` with its tracks and
+:func:`tsdf_volume_from_numpy` a ``tsdf.TsdfVolume`` with its volumes.
 """
 
 from __future__ import annotations
@@ -43,10 +52,13 @@ from .models.icp import IcpParams
 from .ops.nn_cell_list import CellListModel
 
 __all__ = [
-    "corr_cache_from_numpy", "elch_params_from", "graph_pipeline_from",
-    "hough_params_from", "line_scan_set_from_numpy", "lum_params_from",
-    "planes_from_numpy", "preg_params_from", "scans_from_numpy",
-    "srr_params_from", "subgraph_params_from",
+    "collision_params_from", "corr_cache_from_numpy", "elch_params_from",
+    "fh_params_from", "graph_pipeline_from", "hough_params_from",
+    "line_scan_set_from_numpy", "lum_params_from", "mesh_params_from",
+    "people_remover_params_from", "planes_from_numpy", "poisson_params_from",
+    "preg_params_from", "scans_from_numpy", "srr_params_from",
+    "subgraph_params_from", "tracker_from_numpy", "tracker_params_from",
+    "tsdf_params_from", "tsdf_volume_from_numpy", "velo_params_from",
 ]
 
 # fields of the JAX dataclasses with no counterpart in the port
@@ -117,6 +129,104 @@ def preg_params_from(fields: Mapping):
     from .models.preg6d import PregParams
 
     return PregParams(**_carried(fields, ()))
+
+
+def fh_params_from(fields: Mapping):
+    """The port's ``segmentation.FHParams`` from a JAX one's fields."""
+    from .models.segmentation import FHParams
+
+    return FHParams(**_carried(fields, ()))
+
+
+def velo_params_from(fields: Mapping):
+    """The port's ``veloslam.VeloParams`` from a JAX one's fields; the JAX
+    package's ``pad_multiple`` has no counterpart (no padding here)."""
+    from .models.veloslam import VeloParams
+
+    return VeloParams(**_carried(fields, ("pad_multiple",)))
+
+
+def tracker_params_from(fields: Mapping):
+    """The port's ``tracking.TrackerParams`` from a JAX one's fields."""
+    from .models.tracking import TrackerParams
+
+    return TrackerParams(**_carried(fields, ()))
+
+
+def tsdf_params_from(fields: Mapping):
+    """The port's ``tsdf.TsdfParams`` from a JAX one's fields."""
+    from .models.tsdf import TsdfParams
+
+    return TsdfParams(**_carried(fields, ()))
+
+
+def mesh_params_from(fields: Mapping):
+    """The port's ``mesh.MeshParams`` from a JAX one's fields."""
+    from .models.mesh import MeshParams
+
+    return MeshParams(**_carried(fields, ()))
+
+
+def poisson_params_from(fields: Mapping):
+    """The port's ``mesh.PoissonParams`` from a JAX one's fields."""
+    from .models.mesh import PoissonParams
+
+    return PoissonParams(**_carried(fields, ()))
+
+
+def people_remover_params_from(fields: Mapping):
+    """The port's ``peopleremover.PeopleRemoverParams`` from a JAX one's
+    fields."""
+    from .models.peopleremover import PeopleRemoverParams
+
+    return PeopleRemoverParams(**_carried(fields, ()))
+
+
+def collision_params_from(fields: Mapping):
+    """The port's ``collision.CollisionParams`` from a JAX one's fields; the
+    JAX package's ``chunk`` (poses a ``lax.map`` step) has no counterpart:
+    one K1 call a pose."""
+    from .models.collision import CollisionParams
+
+    return CollisionParams(**_carried(fields, ("chunk",)))
+
+
+def tracker_from_numpy(state: Mapping, device="cpu"):
+    """A ``tracking.MultiObjectTracker`` in the state of a JAX one:
+    ``params`` (the ``TrackerParams`` fields), ``dt``, ``next_id`` and
+    ``tracks``, a list of mappings of a ``Track``'s fields (``track_id``,
+    ``x`` [6], ``P`` [6,6], ``hits``, ``misses``, ``start_pos`` [3],
+    ``bbox``) as numpy."""
+    from .models.tracking import MultiObjectTracker, Track
+
+    trk = MultiObjectTracker(
+        tracker_params_from(state["params"]), dt=float(state.get("dt", 1.0)), device=device
+    )
+    trk.tracks = [
+        Track(
+            track_id=int(t["track_id"]), x=np.array(t["x"], dtype=np.float64),
+            P=np.array(t["P"], dtype=np.float64), hits=int(t["hits"]), misses=int(t["misses"]),
+            start_pos=None if t.get("start_pos") is None
+            else np.array(t["start_pos"], dtype=np.float64),
+            bbox=t.get("bbox"),
+        )
+        for t in state["tracks"]
+    ]
+    trk._next_id = int(state["next_id"])
+    return trk
+
+
+def tsdf_volume_from_numpy(state: Mapping, device="cpu"):
+    """A ``tsdf.TsdfVolume`` in the state of a JAX one: ``params`` (the
+    ``TsdfParams`` fields), ``origin`` [3], ``dims`` and the ``tsdf`` /
+    ``weight`` [X,Y,Z] f32 volumes as numpy, put on ``device``."""
+    from .models.tsdf import TsdfVolume
+
+    vol = TsdfVolume(state["origin"], state["dims"], tsdf_params_from(state["params"]),
+                     device=device)
+    vol.tsdf = torch.as_tensor(np.array(state["tsdf"], dtype=np.float32), device=vol.device)
+    vol.weight = torch.as_tensor(np.array(state["weight"], dtype=np.float32), device=vol.device)
+    return vol
 
 
 def planes_from_numpy(planes: Iterable[Mapping]):

@@ -332,6 +332,37 @@ def synth_city(n_scans=13, n_pts=1_000_000, seed=23):
     return locals_, true_mats, odo_mats
 
 
+def city_people(true_mats, n_people=10, n_pts=1500, size=(40.0, 180.0, 40.0), seed=31,
+                near=300.0, far=2000.0):
+    """Person columns standing on :func:`synth_city`'s ground near each
+    scanner, at places drawn anew for every scan (the transient objects a
+    people remover deletes): ``n_people`` boxes of ``size`` (x, height,
+    z in cm) a scan, ``near``-``far`` cm from the scanner, each sampled
+    with ``n_pts`` points on its four sides and top.  Returns, a scan,
+    (boxes [n_people] of (lo [3], hi [3]), points [n_people·n_pts, 3] f32),
+    both in the world frame."""
+    rng = np.random.default_rng(seed)
+    w, h, d = size
+    out = []
+    for T in true_mats:
+        c = np.asarray(T)[:3, 3]
+        ang = rng.uniform(0, 2 * np.pi, n_people)
+        dist = rng.uniform(near, far, n_people)
+        boxes, pts = [], []
+        for a, r in zip(ang, dist):
+            lo = np.array([c[0] + r * np.cos(a) - w / 2, 0.0, c[2] + r * np.sin(a) - d / 2])
+            hi = lo + np.array([w, h, d])
+            face = rng.integers(0, 5, n_pts)  # 4 sides + top
+            u, v, t = rng.uniform(0, 1, (3, n_pts))
+            x = np.where(face == 0, 0.0, np.where(face == 1, w, u * w))
+            z = np.where(face == 2, 0.0, np.where(face == 3, d, v * d))
+            y = np.where(face == 4, h, t * h)
+            boxes.append((lo, hi))
+            pts.append(lo + np.stack([x, y, z], axis=1))
+        out.append((boxes, np.concatenate(pts).astype(np.float32)))
+    return out
+
+
 def city_planes():
     """The distinct planes of :func:`synth_city`'s world as (unit normal
     [3], d) with n·p = d: the ground y = 0, then the facade planes x =
@@ -386,7 +417,7 @@ VELO_ROOM_LO = np.array([-700.0, -180.0, -600.0])
 VELO_ROOM_HI = np.array([1300.0, 220.0, 600.0])
 
 
-def velodyne_capture(pose, lo=VELO_ROOM_LO, hi=VELO_ROOM_HI, intensity=100) -> bytes:
+def velodyne_capture(pose, lo=VELO_ROOM_LO, hi=VELO_ROOM_HI, intensity=100, boxes=()) -> bytes:
     """One revolution of an HDL-64E at ``pose`` (4x4, uos frame, cm) inside
     the box room [lo, hi] (cm), as a raw capture: 360 blocks of 12
     firings, upper and lower blocks alternating, 2160 rotational
@@ -394,7 +425,10 @@ def velodyne_capture(pose, lo=VELO_ROOM_LO, hi=VELO_ROOM_HI, intensity=100) -> b
     Each laser's ray uses the decoder's default calibration and its angle
     formula (``io/velodyne.py::decode_velodyne``), so the decoded points
     are the ray's first hit on a face, up to the 2 mm distance LSB.
-    Returns outside the decoder's gates (2.2, 120) m are written as 0."""
+    ``boxes``: axis-aligned obstacles ((lo [3], hi [3]) in cm, world
+    frame) inside the room; a ray returns its nearest hit among the
+    room's faces and the boxes' outsides.  Returns outside the decoder's
+    gates (2.2, 120) m are written as 0."""
     cal = velodyne.default_calibration()
     n_fire = velodyne.CIRCLELENGTH * 12
     k = np.arange(n_fire)
@@ -414,6 +448,12 @@ def velodyne_capture(pose, lo=VELO_ROOM_LO, hi=VELO_ROOM_HI, intensity=100) -> b
     with np.errstate(divide="ignore"):
         t_face = np.where(d > 0, (np.asarray(hi) - o) / d, (np.asarray(lo) - o) / d)
     t = np.where(d != 0, t_face, np.inf).min(-1)  # cm to the first face hit
+    for blo, bhi in boxes:  # slab test: enter at the largest near-plane t
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t1, t2 = (np.asarray(blo) - o) / d, (np.asarray(bhi) - o) / d
+        t_in = np.fmax.reduce(np.fmin(t1, t2), axis=-1)
+        t_out = np.fmin.reduce(np.fmax(t1, t2), axis=-1)
+        t = np.where((t_in <= t_out) & (t_in > 0), np.minimum(t, t_in), t)
     lsb = np.round(t / 100.0 / velodyne.METERS_PER_LSB)
     dist_m = lsb * velodyne.METERS_PER_LSB
     ok = (dist_m > VELO_MIN_M) & (dist_m < VELO_MAX_M)
@@ -427,12 +467,28 @@ def velodyne_capture(pose, lo=VELO_ROOM_LO, hi=VELO_ROOM_HI, intensity=100) -> b
     return blocks.tobytes()
 
 
+def velodyne_mover(n_captures=20, speed=90.0, size=(450.0, 150.0, 180.0), x0=-500.0,
+                   z=350.0, clearance=30.0):
+    """A car-sized box (``size`` = length along x, height, width in cm)
+    driving along +x at ``speed`` cm a capture beside
+    :func:`synth_velodyne`'s path, ``clearance`` cm above the room's floor,
+    from centre x = ``x0`` through the room (it enters and leaves through
+    the end walls).  Returns one [(lo, hi)] box list a capture."""
+    half = np.array([size[0] / 2, 0.0, size[2] / 2])
+    out = []
+    for i in range(n_captures):
+        c = np.array([x0 + speed * i, VELO_ROOM_LO[1] + clearance, z])
+        out.append([(c - half, c + half + np.array([0.0, size[1], 0.0]))])
+    return out
+
+
 def synth_velodyne(n_captures=20, step=10.0, yaw_step_deg=0.5, seed=29,
-                   odo_sigma_cm=2.0, odo_sigma_deg=0.3):
+                   odo_sigma_cm=2.0, odo_sigma_deg=0.3, boxes=None):
     """A sensor driven through :func:`velodyne_capture`'s room: ``step``
     cm along its heading and ``yaw_step_deg`` about the vertical (uos y)
     a capture; odometry accumulates a seeded error on every step (normal,
-    ``odo_sigma_cm`` on x and z, ``odo_sigma_deg`` of yaw).  Returns
+    ``odo_sigma_cm`` on x and z, ``odo_sigma_deg`` of yaw).  ``boxes``:
+    one obstacle list a capture (e.g. :func:`velodyne_mover`'s).  Returns
     (captures [n] bytes, true_mats, odo_mats)."""
     rng = np.random.default_rng(seed)
     captures, true_mats, odo_mats = [], [], []
@@ -448,7 +504,7 @@ def synth_velodyne(n_captures=20, step=10.0, yaw_step_deg=0.5, seed=29,
             opos = opos + step * ofwd + np.array([err[0], 0.0, err[1]])
             oyaw += np.deg2rad(yaw_step_deg + rng.normal(0.0, odo_sigma_deg))
         T = np.asarray(math3d.euler_to_matrix4(pos, np.array([0.0, yaw, 0.0]), xp=np))
-        captures.append(velodyne_capture(T))
+        captures.append(velodyne_capture(T, boxes=boxes[i] if boxes is not None else ()))
         true_mats.append(T)
         odo_mats.append(np.asarray(
             math3d.euler_to_matrix4(opos, np.array([0.0, oyaw, 0.0]), xp=np)
