@@ -28,7 +28,7 @@ exit code and no result line):
    points, -r 10 -O 1 -d 50 -i 50 --epsICP 1e-6); the kernel's launch
    count must equal the ICP iterations; relative-pose error against
    ground truth is gated.
-5. plain   — the first 4 scans through SequenceRegistration on the card
+5. plain   — the first 2 scans through SequenceRegistration on the card
    and on the CPU (the plain path): same poses and iteration counts.
 6. profile — the first h468 match (scan 1 against scan 0) once more under
    torch.profiler: kernel launches and device time per ICP iteration, the
@@ -52,8 +52,9 @@ exit code and no result line):
    directory: exit 0, ELCH- and LUM-tagged frames, ATE below odometry's.
 16. variants — ``torchslam -L 1 -G 3`` and ``-L 3 -G 4`` on the same
    directory (exit 0, ELCH and LUM frames, finite poses, ATE below
-   odometry's, beside phase 12's); one ``-G 2`` relaxation of its
-   sequential ICP result on the card and on the CPU: the same poses.
+   odometry's, beside phase 12's); one ``-G 2`` relaxation of the
+   sequential ICP result of its first 30 scans on the card and on the CPU:
+   the same poses.
 13. plain graph — the same GraphPipeline on a 32-scan ring of 2048-point
    scans (a corridor a third of the h468 one's size, so the clouds are as
    dense as there) on the card and on the CPU (the plain path): same
@@ -116,7 +117,7 @@ exit code and no result line):
 21. srr — pre-registration and semi-rigid registration of 2000 line
    scans of 1500 points (``synth.synth_linescans``): K1 launches = ICP
    iterations + window link calls, the mean position error halved at
-   least, line 0 fixed; 60 lines of 500 points on the card and on the CPU
+   least, line 0 fixed; 30 lines of 500 points on the card and on the CPU
    (the plain path): the same poses.
 
 Slice 7 (plane detection, plane-based registration, the normals tools,
@@ -209,7 +210,7 @@ paths are K1, and each phase counts K1 and K2):
    the same with ``-T 0`` and without the box: exit 0, one ICP frame a
    capture, K1 launches = window-ICP iterations, moving points in all but
    two of the frames with the box in view, a dynamic track from frame 3;
-   card against CPU on 5 captures at -r 20 (0.5 cm / 1e-3, equal counts);
+   card against CPU on 3 captures at -r 20 (0.5 cm / 1e-3, equal counts);
    the host union-find's time a frame, K1 at the window's shape.
 33. recon — ``torchrecon`` on phase 4's directory with the truth as
    .frames: tsdf at voxel 10 on the 468 scans (the volume's bytes; the
@@ -223,12 +224,43 @@ paths are K1, and each phase counts K1 and K2):
    person and static shares equal the JAX package's
    (scripts/reference_peopleremover_city.py) for "none" (13 scans) and
    "normals" (3 scans); on the scans reduced at -r 20 most person points
-   removed; the ray tiles; card against CPU at voxel 20 on 3 scans.
+   removed; the ray tiles; card against CPU at voxel 20 on 2 scans.
 35. collision — ``detect_collisions`` of an 8192-point vehicle hull along
    256 poses of a street against the 13 city scans reduced (4M points),
    four poses into a facade: K1 launches = 256, exactly those collide,
    hits equal the plain NN's on the card; ``sweep_collisions`` along 64
    waypoints against numpy; K1's device time at 8192 x 4M.
+
+Slice 10 (the rest of the domain models; no NN call of K1 or K2 is on
+these paths, and each phase checks both stay at 0 launches):
+
+36. gps — ``fuse_trajectories(window=8, stride=4)`` of a 20-minute drive
+   at 100 Hz (120,000 poses, ~1% drift) against a 10 Hz GNSS track made as
+   WGS84 near Wuerzburg and taken through ``latlon_to_utm`` (~30,000
+   windows in one batched Horn): closer to the GNSS than the odometry,
+   the windows against a numpy f64 Horn and card against CPU within 8 f32
+   ulp; ``scan_to_utm`` of city scan 0.
+37. thermo — ``colorize_scan`` of city scan 0 through a 640 x 512 camera
+   with distortion (1e-6 px of numpy f64); ``detect_caliboard`` of an 80 x
+   60 cm board in phase 29's room (2 cm, 1 deg); 12 chessboard renders at
+   1280 x 960 (all found, f within 2%, rms < 1 px); ``calibrate_camera``
+   on noise-free pairs (1e-3 relative).
+38. cylinders and building — ``detect_cylinders`` on 6 m crops around the
+   pillars in view of the first 24 h468 scans (radius 40 +- 2 cm, axis
+   within 2 deg of up); ``build_model`` of ``synth.building_room`` (~2M
+   points, 2 doors, 4 windows) at 5 cm cells: 4 walls, 1 floor, 1 ceiling,
+   every opening within 2 cells; the Hough vote's time.
+39. floorplan — ``make_occupancy_grid`` at 10 cm with free-space rays on
+   the 13 city scans reduced at -r 20, the three writers,
+   ``extract_gridlines``, ``extract_floorplan``: the long segments on the
+   facades, most of the facades in view covered
+   (scripts/reference_floorplan_city.py), card = CPU counts on 3 scans;
+   the ray tiles and the host time of ``hough_lines_p``.
+40. fbr — ``register_fbr`` with 3600 x 1000 panoramas, ORB then SIFT
+   (2000 features), on city scans 0-1 and on scan 0 turned 0.15 rad: no
+   worse than the JAX package's errors there
+   (scripts/reference_fbr_city.py) + 5 cm / 0.5 deg; the card time of
+   detection and of matching.
 
 Phase 3 also times a library yardstick for K1: ``torch.cdist(q,
 m).min(dim=1)`` at the first match's shape in both compute modes (no
@@ -266,6 +298,8 @@ MAX_DIST = 50.0
 # accuracy gate on the consecutive relative-pose translation error (cm):
 # the JAX package gave 0.16-0.56 cm on scans 1-4 of this data (PERF.md)
 GATE_MEDIAN_CM = 1.0
+PLAIN_SCANS = 2  # phase 5: card against the CPU plain path
+RELAX_SCANS = 30  # phase 16: the -G 2 relax card against the CPU on the first 30 scans
 # the GraphPipeline at this regime (bench.py:413-425); ATE gate: the JAX
 # package's own result is 18.42 cm (BENCH_r05.json; odometry 68.58 cm)
 GRAPH_ATE_GATE_CM = 21.0
@@ -841,9 +875,9 @@ def cli_graph(scan_dir, out_dir, idents, L, G):
 
 
 def quat_relax_card_vs_cpu(loc60, odo60):
-    """Phase 16, second part: one -G 2 relaxation of the 60-scan
-    directory's sequential ICP result, on the card and on the CPU (the
-    plain path) from the same start poses."""
+    """Phase 16, second part: one -G 2 relaxation of the sequential ICP
+    result of the 60-scan directory's first RELAX_SCANS scans, on the card
+    and on the CPU (the plain path) from the same start poses."""
     import numpy as np
     import torch
 
@@ -854,7 +888,7 @@ def quat_relax_card_vs_cpu(loc60, odo60):
     from tpu3dtk_torch.models.sequence import SequenceRegistration
 
     base = []
-    for k, (loc, To) in enumerate(zip(loc60, odo60)):
+    for k, (loc, To) in enumerate(zip(loc60[:RELAX_SCANS], odo60[:RELAX_SCANS])):
         s = Scan.from_points(loc, f"{k:03d}", To)
         s.device = "cuda"
         s.set_reduction(10.0, 1)
@@ -881,7 +915,7 @@ def quat_relax_card_vs_cpu(loc60, odo60):
     n_it = [len(s.frames) for s in (cs[0], ps[0])]
     phase(
         16, "variants",
-        f"-G 2 relax of the 60 scans' ICP result ({len(links)} links): cuda {c_s:.2f} s vs cpu "
+        f"-G 2 relax of {RELAX_SCANS} scans' ICP result ({len(links)} links): cuda {c_s:.2f} s vs cpu "
         f"plain {p_s:.2f} s; iterations {n_it[0]} vs {n_it[1]}, final shift {cret:.4f} vs "
         f"{pret:.4f} cm; max pose diff {dt:.4f} cm / {dr:.2e} rot",
     )
@@ -1586,6 +1620,7 @@ def bremen_phases(dev, params_city):
     # ---- phases 34, 35: people removal and collision on the city --------
     people_phase(locals_, true_mats)
     k1_collision, collision_k1 = collision_phase(locals_, true_mats)
+    domain_phases(locals_, true_mats)
     # ---- phases 23, 26, 24: planes, scan_red, planereg on the city ------
     with tempfile.TemporaryDirectory() as tmp:
         scan_dir = os.path.join(tmp, "scans")
@@ -1632,6 +1667,7 @@ SRR_LINES = 2000
 SRR_PTS = 1500
 SRR_DRIFT = 0.01
 SRR_SEED = 42
+SRR_CPU_LINES = 30  # card against CPU on this many line scans
 
 
 def streaming_phase(tmp, scan_dir, idents, seq_mats, true_mats, odo_mats, seq_bytes):
@@ -1998,7 +2034,7 @@ def _srr_run(n_lines, n_pts, drift, device, params):
 
 def srr_phase():
     """Phase 21: semi-rigid registration of 2000 line scans of 1500
-    points on the card; 60 lines of 500 points on the card and on the
+    points on the card; 30 lines of 500 points on the card and on the
     CPU (the plain path).  Returns K1's launches in the first."""
     import numpy as np
 
@@ -2029,13 +2065,13 @@ def srr_phase():
 
     out = {}
     for dev in (CARD, "cpu"):
-        out[dev] = _srr_run(60, 500, 0.25, dev, params)
+        out[dev] = _srr_run(SRR_CPU_LINES, 500, 0.25, dev, params)
     (c_ls, c_err, c_it, c_s), (p_ls, p_err, p_it, p_s) = out[CARD], out["cpu"]
     dt = float(np.abs(c_ls.poses[:, :3, 3] - p_ls.poses[:, :3, 3]).max())
     dr = float(np.abs(c_ls.poses[:, :3, :3] - p_ls.poses[:, :3, :3]).max())
     phase(
         21, "srr",
-        f"60 lines x 500 points: cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; pre-registration "
+        f"{SRR_CPU_LINES} lines x 500 points: cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; pre-registration "
         f"iterations {c_it} / {p_it}; mean position error {c_err[0]:.4f} -> {c_err[2]:.4f} cm "
         f"(cpu {p_err[2]:.4f}); max pose diff {dt:.4f} cm / {dr:.2e} rot",
     )
@@ -3333,7 +3369,7 @@ def export_parser_phase(tmp, scan_dir, e57_dir):
 # phase 32: torchveloslam on phase 29's room with a car-sized box crossing
 # beside the sensor's path at 90 cm a capture (synth.velodyne_mover)
 VELOSLAM_FLAGS = ["-f", "velodyne", "-r", "10", "--window", "3"]
-VELOSLAM_CPU_CAPTURES = 5  # card against CPU at -r 20
+VELOSLAM_CPU_CAPTURES = 3  # card against CPU at -r 20
 BOX_SEEN = 100  # raw returns on the box for "the box is in view"
 # phase 33: torchrecon on phase 4's h468 directory (truth .frames)
 RECON_SCANS_FIELD = 24  # poisson and imls on the first 24 scans
@@ -3351,7 +3387,8 @@ RING_BOX = ((-4800.0, -600.0, -4800.0), (4800.0, 600.0, 4800.0))
 PEOPLE_REF = {"none": (0.7124, 0.448051), "normals": (0.5258, 0.073900)}
 PEOPLE_MIN_REMOVED = 0.5  # "most person points": the -r 20 run's "none" on 13 scans
 PEOPLE_VOXEL = 10.0
-PEOPLE_CPU_VOXEL = 20.0  # card against CPU: 3 scans at voxel 20
+PEOPLE_CPU_VOXEL = 20.0  # card against CPU at voxel 20
+PEOPLE_CPU_SCANS = 2  # on this many scans
 # phase 35: collision along a street of phase 8's city
 HULL = (180.0, 150.0, 450.0)  # vehicle hull x (width), y (height), z (length), cm
 HULL_PTS = 8192
@@ -3380,7 +3417,7 @@ def veloslam_phase():
     frame a capture, K1 launches = the window-ICP iterations, K2 none;
     moving points flagged in all but at most two of the frames with the
     box in view, a dynamic track in some frame >= 3; card against CPU on
-    5 captures at -r 20 (0.5 cm / 1e-3, equal per-frame counts).  Prints
+    3 captures at -r 20 (0.5 cm / 1e-3, equal per-frame counts).  Prints
     the error of each run, the host union-find's time a frame and K1 at
     the window's shape.  Returns K1's launches on the -T 2 run and K1's
     numbers at the window."""
@@ -3750,7 +3787,7 @@ def people_phase(locals_, true_mats):
     scans, "normals" on scans 0-2, voxel 10).  Then on the scans reduced
     on the card at -r 20, the same two runs: most person points removed by
     "none" (the static share printed: PERF.md).  K1 and K2 launch no time;
-    card against CPU on 3 scans at voxel 20 (keep masks differing in
+    card against CPU on 2 scans at voxel 20 (keep masks differing in
     fewer than 1e-4 of the points).  Prints the ray tiles."""
     import numpy as np
 
@@ -3804,17 +3841,18 @@ def people_phase(locals_, true_mats):
     check(shares["none"][0] >= PEOPLE_MIN_REMOVED,
           f"maxrange none: {shares['none'][0]} of the person points removed")
 
-    # card against CPU: 3 scans at voxel 20
+    # card against CPU at voxel 20
     p = pr.PeopleRemoverParams(voxel_size=PEOPLE_CPU_VOXEL)
+    n = PEOPLE_CPU_SCANS
     t0 = time.perf_counter()
-    card = pr.remove_dynamic_points(world[:3], origins[:3], p, device=CARD)
+    card = pr.remove_dynamic_points(world[:n], origins[:n], p, device=CARD)
     c_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = pr.remove_dynamic_points(world[:3], origins[:3], p, device="cpu")
+    cpu = pr.remove_dynamic_points(world[:n], origins[:n], p, device="cpu")
     p_s = time.perf_counter() - t0
     diff = sum(int((a != b).sum()) for a, b in zip(card, cpu))
     total = sum(len(a) for a in card)
-    phase(34, "people", f"card against CPU on 3 scans at voxel {PEOPLE_CPU_VOXEL}: {c_s:.2f} s vs "
+    phase(34, "people", f"card against CPU on {n} scans at voxel {PEOPLE_CPU_VOXEL}: {c_s:.2f} s vs "
           f"{p_s:.2f} s; keep masks differ in {diff} of {total} points (bound {1e-4 * total:.0f})")
     check(diff <= 1e-4 * total, "remove_dynamic_points: card and CPU keep masks disagree")
     phase(34, "people", f"phase wall {time.perf_counter() - t_phase:.2f} s")
@@ -3943,6 +3981,629 @@ def collision_phase(locals_, true_mats):
                 "collision_ms": k_ms,
                 "collision_plain_ms": p_ms, "collision_bound_ms": bound,
                 "collision_instr_bound_ms": instr}
+
+
+# ---- phases 36-40: the rest of the domain models (slice 10).  No NN call of
+# K1 or K2 is on these paths: each phase sets both counts to 0 and checks
+# they stay 0.
+
+# phase 36: a 20-minute drive at 100 Hz with a 10 Hz GNSS track near Wuerzburg
+DRIVE_S = 1200.0
+DRIVE_HZ = 100
+GNSS_HZ = 10
+GNSS_NOISE_CM = 3.0
+WUERZBURG = (49.7913, 9.9534)  # tests/test_gps.py's anchor
+DRIVE_EXTENT_CM = 40000.0  # the route stays within 400 m of its start
+FUSION_WINDOW, FUSION_STRIDE = 8, 4
+# phase 37: a 640 x 512 thermal camera; an 80 x 60 cm board; 12 chessboard views
+THERMO_W, THERMO_H = 640, 512
+THERMO_DIST = (-0.21, 0.08, 0.001, -0.0015, -0.01)
+BOARD = (80.0, 60.0)
+BOARD_PTS = 3000
+BOARD_CROP = 150.0  # cm around the board's expected place
+CHESS = (9, 6)  # inner corners
+CHESS_VIEWS = 12
+CHESS_SIZE = (1280, 960)
+CHESS_F = 1100.0
+CHESS_SQ = 40.0  # mm
+# phase 38: pillars of the first 24 h468 scans; phase 29's room with openings
+CYL_SCANS = 24
+CYL_CROP = 300.0  # 6 m crops
+# the crop's height band: 1 m off the floor and the ceiling (at -+600): their
+# normals vote for every horizontal axis, and the reference's vote then finds
+# the corridor's height as a horizontal cylinder of radius ~600 cm
+CYL_BAND = 500.0
+# the axis sphere: the default 500 directions come no closer than 3.9 deg to
+# up, 2000 within 1.0 deg (the gate is 2 deg)
+CYL_DIRS = 2000
+PILLAR_R = 40.0
+ROOM_PTS = 2_000_000
+ROOM_CELL = 5.0
+# 4050 directions (2.2 deg apart) and 40 cm rho bins (the defaults' n_rho
+# over 2000 cm): a 20 m wall's votes stay in one or two bins
+ROOM_HOUGH = dict(min_inliers=5000, max_planes=8, dist_tol=5.0, n_theta=45, n_phi=90)
+# phase 39: the city's floor plan
+GRID_RES = 10.0
+FLOOR_NEAR_SHARE = 0.95  # of the >= 2 m segments within 15 cm of a facade (JAX: 139 of 141)
+FLOOR_COVERAGE = 0.80  # of the facade samples in view (JAX at 1/20 density: 0.8779)
+# phase 40: fbr with the reference's panorama size
+FBR_SIZE = (3600, 1000)
+FBR_FEATURES = 2000
+# the JAX package's errors (cm, deg) on the same pairs, CPU, OpenCV
+# (scripts/reference_fbr_city.py): the port must do no worse + the margin
+FBR_REF = {
+    ("scans 0-1", "orb"): (1666.6667, 0.0),  # 12 matches, 3 inliers: the identity
+    ("scans 0-1", "sift"): (1666.6667, 0.0),  # 3 matches: the identity
+    ("scan 0 turned", "orb"): (14.6313, 0.2115),  # 69 matches, 34 inliers
+    ("scan 0 turned", "sift"): (58.3095, 8.5944),  # 18 matches, 7 inliers: the identity
+}
+FBR_MARGIN = (5.0, 0.5)
+
+
+def _sync():
+    import torch
+
+    if torch.device(CARD).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _gps_local(lat, lon):
+    """(x east, z north) cm of lat/lon in the port's UTM, less the first fix."""
+    import numpy as np
+
+    from tpu3dtk_torch.models import gps
+
+    e, n, _zone = gps.latlon_to_utm(lat, lon)
+    return np.stack([(e - e[0]) * 100.0, np.zeros_like(e), (n - n[0]) * 100.0], axis=1)
+
+
+def _horn_f64(A, B):
+    """Rigid T [S,4,4] taking windows A [S,W,3] onto B, numpy f64 SVD."""
+    import numpy as np
+
+    ca, cb = A.mean(1), B.mean(1)
+    H = np.einsum("swi,swj->sij", A - ca[:, None], B - cb[:, None])
+    U, _s, Vt = np.linalg.svd(H)
+    d = np.sign(np.linalg.det(np.einsum("sji,skj->sik", Vt, U)))
+    D = np.zeros((len(A), 3, 3))
+    D[:, 0, 0] = D[:, 1, 1] = 1.0
+    D[:, 2, 2] = d
+    R = np.einsum("sji,sjk,slk->sil", Vt, D, U)
+    T = np.tile(np.eye(4), (len(A), 1, 1))
+    T[:, :3, :3] = R
+    T[:, :3, 3] = cb - np.einsum("sij,sj->si", R, ca)
+    return T
+
+
+def gps_fusion_phase(city0):
+    """Phase 36: ``fuse_trajectories(window=8, stride=4)`` on the card for a
+    20-minute drive at 100 Hz (120,000 odometry poses drifting ~1% of the
+    distance) against a 10 Hz GNSS track made as WGS84 near Wuerzburg and
+    taken through ``latlon_to_utm`` into a local frame (UTM less the
+    first fix) with 3 cm of noise.  Gates: the fused curve closer to the
+    GNSS than the odometry; its rmse to the GNSS within 0.1 cm of the
+    same blend of numpy f64 Horn windows (the f32 power iteration leaves
+    near-collinear windows above their optimum: printed); card against
+    CPU within max(1e-3 cm, 8 ulp) (f32 windows at up to 400 m from the
+    start: ulp(4e4 cm) = 0.0039 cm).  Prints
+    ``scan_to_utm`` on city scan 0 as a host time."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.models import curvefusion as cf
+    from tpu3dtk_torch.models import gps
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(36)
+    n = int(DRIVE_S * DRIVE_HZ)
+    t = np.arange(n) / DRIVE_HZ
+    w = 2 * np.pi / DRIVE_S
+    A = DRIVE_EXTENT_CM
+    truth = np.stack([A * np.sin(3 * w * t), 150.0 * np.sin(0.5 * w * t),
+                      A * np.sin(2 * w * t + 0.4)], axis=1)
+    truth -= truth[0]  # the local frame starts at the first fix
+    dist_m = float(np.linalg.norm(np.diff(truth, axis=0), axis=1).sum()) / 100.0
+    # WGS84 of the truth (x east, z north; a local tangent plane at the anchor)
+    lat0, lon0 = WUERZBURG
+    R_e = 6378137.0
+    lat = lat0 + np.degrees(truth[:, 2] / 100.0 / R_e)
+    lon = lon0 + np.degrees(truth[:, 0] / 100.0 / (R_e * np.cos(np.radians(lat0))))
+    gnss_idx = np.arange(0, n, DRIVE_HZ // GNSS_HZ)
+    t_b = t[gnss_idx]
+    t0 = time.perf_counter()
+    pos_b = _gps_local(lat[gnss_idx], lon[gnss_idx])
+    utm_s = time.perf_counter() - t0
+    pos_b[:, 1] = truth[gnss_idx, 1]
+    pos_b += rng.normal(0, GNSS_NOISE_CM, pos_b.shape)
+    # odometry: the truth's steps, scaled 0.5% and turned by a wandering
+    # heading error (a random walk of 2e-4 rad a step), integrated
+    steps = np.diff(truth, axis=0)
+    yaw = np.cumsum(rng.normal(0, 2e-4, n - 1))
+    c, s = np.cos(yaw), np.sin(yaw)
+    st = np.stack([c * steps[:, 0] + s * steps[:, 2], steps[:, 1],
+                   -s * steps[:, 0] + c * steps[:, 2]], axis=1) * 1.005
+    odo = np.concatenate([truth[:1], truth[:1] + np.cumsum(st, axis=0)])
+    drift = float(np.linalg.norm(odo - truth, axis=1).max()) / 100.0
+    phase(36, "gps", f"drive {n} poses at {DRIVE_HZ} Hz over {dist_m:.1f} m (largest drift "
+          f"{drift:.2f} m, {100 * drift / dist_m:.2f}% of the distance), {len(gnss_idx)} GNSS fixes; "
+          f"latlon_to_utm of them {utm_s * 1e3:.2f} ms (host)")
+
+    k12_zero()
+    params = cf.FusionParams(window=FUSION_WINDOW, stride=FUSION_STRIDE, blend=0.5)
+    cf.fuse_trajectories(t[:1000], odo[:1000], t_b[:100], pos_b[:100], params, device=CARD)
+    _sync()
+    t0 = time.perf_counter()
+    fused, info = cf.fuse_trajectories(t, odo, t_b, pos_b, params, device=CARD)
+    _sync()
+    card_s = time.perf_counter() - t0
+    launches = k12_check("fuse_trajectories")
+    t0 = time.perf_counter()
+    fused_cpu, _info_cpu = cf.fuse_trajectories(t, odo, t_b, pos_b, params, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    j = cf.associate_by_time(t, t_b)
+    starts, idx = cf._window_index(n, FUSION_WINDOW, FUSION_STRIDE)
+    win_a = odo[idx].astype(np.float32).astype(np.float64)
+    win_b = pos_b[j][idx].astype(np.float32).astype(np.float64)
+    ref = _horn_f64(win_a, win_b)
+
+    def moved(T):
+        return np.einsum("sij,swj->swi", T[:, :3, :3], win_a) + T[:, None, :3, 3]
+
+    pb = pos_b[j]
+
+    def win_rms(T):
+        return np.sqrt(((moved(T) - win_b) ** 2).sum(2).mean(1))
+
+    excess = win_rms(info["segment_aligns"]) - win_rms(ref)
+    # the f64 Horn's aligns through the same blend (numpy f64)
+    w = np.maximum(1.0 - np.abs(idx - (starts + FUSION_WINDOW / 2.0)[:, None]) / FUSION_WINDOW, 1e-3)
+    acc = np.zeros((n, 3))
+    wacc = np.zeros(n)
+    np.add.at(acc, idx.reshape(-1), (w[..., None] * (
+        np.einsum("sij,swj->swi", ref[:, :3, :3], odo[idx]) + ref[:, None, :3, 3])).reshape(-1, 3))
+    np.add.at(wacc, idx.reshape(-1), w.reshape(-1))
+    fused_ref = 0.5 * np.where(wacc[:, None] > 0, acc / np.maximum(wacc, 1e-12)[:, None], odo) + 0.5 * pb
+    rmse_ref = float(np.sqrt(((fused_ref - pb) ** 2).sum(1).mean()))
+    d_cpu = float(np.abs(fused - fused_cpu).max())
+    ulp = float(np.spacing(np.float32(np.abs(odo).max())))
+    bound = max(1e-3, 8 * ulp)
+    phase(36, "gps", f"fuse_trajectories on the card: {info['segments']} windows in one batched "
+          f"Horn, {card_s:.3f} s (CPU {cpu_s:.3f} s); rmse to GNSS {info['rmse_before']:.3f} -> "
+          f"{info['rmse_after']:.3f} cm (with numpy f64 Horn windows {rmse_ref:.3f}); the f32 "
+          f"windows' rms above the f64 optimum: median {np.median(excess):.4f}, max "
+          f"{excess.max():.4f} cm; card vs CPU fused max {d_cpu:.6f} cm (bound {bound:.6f}: 8 ulp "
+          f"of {np.abs(odo).max():.0f} cm in f32); {launches}")
+    check(info["rmse_after"] < info["rmse_before"], "fusion did not bring the curve to the GNSS")
+    check(bool(np.isfinite(fused).all()) and fused.shape == odo.shape, "fused curve malformed")
+    check(info["rmse_after"] <= rmse_ref + 0.1, "fused curve worse than with f64 Horn windows")
+    check(d_cpu <= bound, f"card and CPU fused curves {d_cpu} cm apart")
+    t0 = time.perf_counter()
+    utm = gps.scan_to_utm(city0, lat0, lon0, 170.0)
+    phase(36, "gps", f"scan_to_utm of city scan 0 ({len(city0)} points): "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host)")
+    check(bool(np.isfinite(utm).all()), "scan_to_utm: non-finite output")
+    phase(36, "gps", f"phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
+def _chess_render(R, t, cols, rows, sq, f, cx, cy, size):
+    """A binary render of a chessboard of (cols+1) x (rows+1) squares seen
+    by a pinhole camera (board frame to camera: R, t)."""
+    import numpy as np
+
+    W, H = size
+    yy, xx = np.mgrid[0:H, 0:W]
+    d = np.stack([(xx - cx) / f, (yy - cy) / f, np.ones_like(xx, dtype=np.float64)], -1)
+    d = d @ R
+    o = R.T @ (-t)
+    lam = -o[2] / d[..., 2]
+    bx = o[0] + lam * d[..., 0]
+    by = o[1] + lam * d[..., 1]
+    inside = (bx > 0) & (bx < (cols + 1) * sq) & (by > 0) & (by < (rows + 1) * sq) & (lam > 0)
+    par = (np.floor(bx / sq) + np.floor(by / sq)) % 2
+    img = np.zeros((H, W))
+    img[inside] = np.where(par[inside] > 0, 1.0, 0.0)
+    return img
+
+
+def thermo_calibration_phase(city0):
+    """Phase 37: ``colorize_scan`` of city scan 0 (1M raw points) through a
+    640 x 512 camera with Brown-Conrady distortion (u, v within 1e-6 px of
+    numpy f64, valid masks and values equal); ``detect_caliboard`` of an
+    80 x 60 cm board (3000 points, tilted) in phase 29's room, on the
+    1.5 m crop around its expected place (centre within 2 cm, normal
+    within 1 deg); ``calibrate_from_chessboard_images`` on 12 renders at
+    1280 x 960 of 9 x 6 inner corners (every view found, fx/fy within 2%,
+    rms < 1 px); ``calibrate_camera`` on noise-free pairs of the same
+    camera (intrinsics within 1e-3 relative)."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.models import calibration as cal
+    from tpu3dtk_torch.models import thermo
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(37)
+    R = np.asarray(math3d.euler_to_matrix3(np.array([0.05, 0.4, 0.02]), xp=np))
+    cam = thermo.Camera(fx=540.0, fy=545.0, cx=318.0, cy=259.0, width=THERMO_W, height=THERMO_H,
+                        dist=THERMO_DIST, R=R, t=np.array([4.0, -12.0, 7.0]))
+    img = rng.uniform(-10.0, 60.0, (THERMO_H, THERMO_W)).astype(np.float32)
+    k12_zero()
+    pts = torch.as_tensor(city0, device=CARD)
+    thermo.colorize_scan(pts[:1000], img, cam)
+    _sync()
+    t0 = time.perf_counter()
+    vals, valid = thermo.colorize_scan(pts, img, cam)
+    u, v, _ok = thermo.project_points(pts, cam)
+    _sync()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    # numpy f64, the JAX package's formula
+    p = city0.astype(np.float64) @ R.T + cam.t
+    z = p[:, 2]
+    zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+    x, y = p[:, 0] / zs, p[:, 1] / zs
+    k1, k2, p1, p2, k3 = cam.dist
+    r2 = x * x + y * y
+    rad = 1.0 + k1 * r2 + k2 * r2**2 + k3 * r2**3
+    un = cam.fx * (x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)) + cam.cx
+    vn = cam.fy * (y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y) + cam.cy
+    okn = (z > 0) & (un >= 0) & (un <= THERMO_W - 1) & (vn >= 0) & (vn <= THERMO_H - 1)
+    with np.errstate(invalid="ignore"):  # the points behind the camera (masked)
+        vi = np.clip(np.round(vn).astype(int), 0, THERMO_H - 1)
+        ui = np.clip(np.round(un).astype(int), 0, THERMO_W - 1)
+    valn = np.where(okn, img[vi, ui], 0)
+    valid_h = valid.cpu().numpy()
+    du = float(np.abs(u.cpu().numpy()[okn] - un[okn]).max())
+    dv = float(np.abs(v.cpu().numpy()[okn] - vn[okn]).max())
+    phase(37, "thermo", f"colorize_scan of city scan 0 ({len(city0)} points) through a "
+          f"{THERMO_W} x {THERMO_H} camera: {card_ms:.2f} ms on the card (with the projection "
+          f"again), {int(okn.sum())} points in view; u, v against numpy f64 max {du:.3e} / "
+          f"{dv:.3e} px; {k12_check('colorize_scan')}")
+    check(du <= 1e-6 and dv <= 1e-6, "colorize_scan: pixels differ from numpy f64")
+    check(bool(np.array_equal(valid_h, okn)), "colorize_scan: valid masks differ")
+    check(bool(np.array_equal(vals.cpu().numpy(), valn)), "colorize_scan: values differ")
+
+    # the board in phase 29's room
+    room, centre, _ = synth.building_room(n_pts=1_000_000, seed=29, openings=())
+    b_c = centre + np.array([250.0, 10.0, 180.0])
+    Rb = np.asarray(math3d.euler_to_matrix3(np.array([0.35, 0.6, 0.0]), xp=np))
+    uv = rng.uniform(-0.5, 0.5, (BOARD_PTS, 2)) * np.array(BOARD)
+    board = b_c + uv[:, 0:1] * Rb[:, 0] + uv[:, 1:2] * Rb[:, 1] + rng.normal(0, 0.3, (BOARD_PTS, 1)) * Rb[:, 2]
+    cloud = np.concatenate([room.astype(np.float64), board]) - centre
+    crop = np.all(np.abs(cloud - (b_c - centre)) < BOARD_CROP, axis=1)
+    k12_zero()
+    t0 = time.perf_counter()
+    found = thermo.detect_caliboard(torch.as_tensor(cloud[crop], device=CARD), BOARD)
+    cb_ms = (time.perf_counter() - t0) * 1e3
+    launches = k12_check("detect_caliboard")
+    check(found is not None, "detect_caliboard found no board")
+    c, nrm, inl = found
+    dc = float(np.linalg.norm(c - (b_c - centre)))
+    ang = float(np.degrees(np.arccos(min(1.0, abs(float(nrm @ Rb[:, 2]))))))
+    phase(37, "thermo", f"detect_caliboard: {len(room)} room points + {BOARD_PTS} on an "
+          f"{BOARD[0]:g} x {BOARD[1]:g} cm board, {int(crop.sum())} in the {2 * BOARD_CROP:g} cm crop; "
+          f"{cb_ms:.2f} ms; centre off by {dc:.4f} cm, normal by {ang:.4f} deg, {int(inl.sum())} "
+          f"inliers; {launches}")
+    check(dc <= 2.0 and ang <= 1.0, "detect_caliboard: board centre or normal off")
+
+    # chessboard views and the planar bootstrap
+    cols, rows = CHESS
+    W, H = CHESS_SIZE
+    views = []
+    for k in range(CHESS_VIEWS):
+        rx, ry = 0.45 * np.sin(2.1 * k + 0.3), 0.45 * np.cos(1.7 * k)
+        Rv = np.asarray(math3d.euler_to_matrix3(np.array([rx, ry, 0.15 * np.sin(1.3 * k)]), xp=np))
+        tz = 600.0 + 100.0 * (k % 4)
+        half = np.array([(cols + 1) * CHESS_SQ / 2, (rows + 1) * CHESS_SQ / 2, 0.0])
+        tv = np.array([0.0, 0.0, tz]) - Rv @ half
+        views.append(_chess_render(Rv, tv, cols, rows, CHESS_SQ, CHESS_F, W / 2, H / 2, (W, H)))
+    k12_zero()
+    t0 = time.perf_counter()
+    K, rms, used = cal.calibrate_from_chessboard_images(views, CHESS, CHESS_SQ, device=CARD)
+    ch_s = time.perf_counter() - t0
+    launches = k12_check("calibrate_from_chessboard_images")
+    check(K is not None, "calibrate_from_chessboard_images: no view calibrated")
+    ef = max(abs(K[0, 0] - CHESS_F), abs(K[1, 1] - CHESS_F)) / CHESS_F
+    phase(37, "calibration", f"{CHESS_VIEWS} chessboard renders at {W} x {H}, {cols} x {rows} inner "
+          f"corners: {used} found, {ch_s:.2f} s; fx {K[0, 0]:.2f} fy {K[1, 1]:.2f} (truth "
+          f"{CHESS_F:g}, {100 * ef:.3f}%), rms {rms:.4f} px; {launches}")
+    check(used == CHESS_VIEWS, f"{used} of {CHESS_VIEWS} chessboard views found")
+    check(ef <= 0.02 and rms < 1.0, "chessboard intrinsics off by more than 2% or rms >= 1 px")
+
+    X = rng.uniform(-80, 80, (200, 3)) + np.array([0.0, 0.0, 400.0])
+    fx, fy, cx, cy = 1100.0, 1080.0, 640.0, 480.0
+    pc = X @ Rv.T + np.array([3.0, -5.0, 60.0])
+    xn, yn = pc[:, 0] / pc[:, 2], pc[:, 1] / pc[:, 2]
+    x2 = np.stack([fx * xn + cx, fy * yn + cy], axis=1)
+    k12_zero()
+    t0 = time.perf_counter()
+    out = cal.calibrate_camera(X, x2)
+    cc_s = time.perf_counter() - t0
+    launches = k12_check("calibrate_camera")
+    errs = [abs(out[k] - v) / v for k, v in (("fx", fx), ("fy", fy), ("cx", cx), ("cy", cy))]
+    phase(37, "calibration", f"calibrate_camera on 200 noise-free pairs on the card: {cc_s:.2f} s, "
+          f"largest intrinsic error {max(errs):.3e} relative, rms {out['rms_px']:.3e} px; {launches}")
+    check(max(errs) <= 1e-3, "calibrate_camera: intrinsics off by more than 1e-3")
+    phase(37, "thermo", f"phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
+def cylinder_phase(locals_, true_mats):
+    """Phase 38, cylinders: the first 24 h468 scans in their true poses;
+    ``detect_cylinders`` on the 6 m crop around each pillar in view (more
+    than 500 points within 60 cm of its axis), between 1 m above the
+    floor and 1 m below the ceiling.  Gate: a cylinder within 15
+    cm of the pillar's axis with radius 40 +- 2 cm and its axis within 2
+    deg of up.  Prints every cylinder found (the corridor's walls and
+    floor vote too)."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.models import cylinder
+
+    t_phase = time.perf_counter()
+    world = np.concatenate([
+        np.asarray(math3d.transform3(np.asarray(T), loc.astype(np.float64)))
+        for loc, T in zip(locals_[:CYL_SCANS], true_mats[:CYL_SCANS])
+    ])
+    a = np.arange(0, 2 * np.pi, np.pi / 12)
+    pillars = np.stack([4500.0 * np.cos(a), 4500.0 * np.sin(a)], 1)
+    seen = 0
+    for k, pc in enumerate(pillars):
+        d_ax = np.hypot(world[:, 0] - pc[0], world[:, 2] - pc[1])
+        if (d_ax < 60.0).sum() < 500:
+            continue
+        seen += 1
+        crop = ((np.abs(world[:, 0] - pc[0]) < CYL_CROP) & (np.abs(world[:, 2] - pc[1]) < CYL_CROP)
+                & (np.abs(world[:, 1]) < CYL_BAND))
+        k12_zero()
+        _sync()
+        t0 = time.perf_counter()
+        cyls = cylinder.detect_cylinders(torch.as_tensor(world[crop], device=CARD),
+                                         params=cylinder.CylinderParams(n_directions=CYL_DIRS))
+        _sync()
+        c_s = time.perf_counter() - t0
+        launches = k12_check("detect_cylinders")
+        desc = "; ".join(
+            f"r {c.radius:.2f} cm, axis tilt {np.degrees(np.arccos(min(1.0, abs(c.axis[1])))):.2f} "
+            f"deg, {np.hypot(c.center[0] - pc[0], c.center[2] - pc[1]):.2f} cm from the pillar, "
+            f"{c.n_inliers} inliers" for c in cyls)
+        phase(38, "cylinder", f"pillar {k}: {int(crop.sum())} points in the 6 m crop, "
+              f"{c_s:.2f} s; {len(cyls)} cylinders: {desc}; {launches}")
+        hit = [c for c in cyls if np.hypot(c.center[0] - pc[0], c.center[2] - pc[1]) <= 15.0
+               and abs(c.radius - PILLAR_R) <= 2.0
+               and np.degrees(np.arccos(min(1.0, abs(c.axis[1])))) <= 2.0]
+        check(bool(hit), f"pillar {k}: no cylinder of radius 40 +- 2 cm along up at it")
+    check(seen >= 1, "no pillar in view of the first 24 h468 scans")
+    phase(38, "cylinder", f"{seen} pillars in view of {len(world)} points; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
+
+
+def building_phase():
+    """Phase 38, building model: ``synth.building_room`` (phase 29's room
+    with 2 doors and 4 windows, ~2M points from a scanner at its centre,
+    0.5 cm noise) through ``build_model`` at 5 cm cells.  Gates: 4 walls,
+    1 floor, 1 ceiling; every opening found on its wall with its extents
+    within 2 cells; the kind as the reference's rule gives it (a window:
+    the rule's "bottom" is the wall's top, ROADMAP queue 3).  Prints the
+    Hough vote's time and any extra openings."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch import synth
+    from tpu3dtk_torch.models import building, shapes
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    pts, centre, boxes = synth.building_room(n_pts=ROOM_PTS)
+    local = torch.as_tensor(pts.astype(np.float64) - centre, device=CARD)
+    metrics.reset()
+    k12_zero()
+    t0 = time.perf_counter()
+    model = building.build_model(local, shapes.HoughParams(**ROOM_HOUGH), cell=ROOM_CELL)
+    b_s = time.perf_counter() - t0
+    launches = k12_check("build_model")
+    vote = metrics.timers.get(shapes.HOUGH_VOTE)
+    phase(38, "building", f"build_model on {len(pts)} points at {ROOM_CELL:g} cm cells: {b_s:.2f} s "
+          f"(Hough vote {vote.total if vote else 0.0:.3f} s over {vote.count if vote else 0} "
+          f"rounds); walls {len(model['walls'])}, floors {len(model['floors'])}, ceilings "
+          f"{len(model['ceilings'])}, other {len(model['other'])}; {launches}")
+    check((len(model["walls"]), len(model["floors"]), len(model["ceilings"])) == (4, 1, 1),
+          "build_model: not 4 walls, 1 floor and 1 ceiling")
+    found = []
+    for wi, ops in model["openings"].items():
+        for o in ops:
+            wall = model["walls"][wi]
+            u, v = building._plane_basis(wall.normal)
+            corners = np.stack([wall.normal * wall.rho + u * x + v * y
+                                for x in (o.lo[0], o.hi[0]) for y in (o.lo[1], o.hi[1])]) + centre
+            found.append((corners.min(0), corners.max(0), o.kind))
+    tol = 2 * ROOM_CELL
+    matched = set()
+    for ax, _side, lo, hi, kind in boxes:
+        along = 2 if ax == 0 else 0
+        best = [k for k, (flo, fhi, _fk) in enumerate(found)
+                if abs(flo[ax] - lo[ax]) < 20.0
+                and max(abs(flo[along] - lo[along]), abs(fhi[along] - hi[along]),
+                        abs(flo[1] - lo[1]), abs(fhi[1] - hi[1])) <= tol]
+        phase(38, "building", f"{kind} at {lo.round(1).tolist()}-{hi.round(1).tolist()}: "
+              + (f"found as {found[best[0]][2]} at {found[best[0]][0].round(1).tolist()}-"
+                 f"{found[best[0]][1].round(1).tolist()}" if best else "not found"))
+        check(bool(best), f"{kind} at {lo} not found within {tol} cm")
+        check(found[best[0]][2] == "window", "opening kind differs from the reference's rule")
+        matched.add(best[0])
+    phase(38, "building", f"{len(found)} openings found, {len(found) - len(matched)} beyond the "
+          f"six cut; phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
+def floorplan_phase(world, origins, city_small):
+    """Phase 39: ``make_occupancy_grid`` at 10 cm with free-space rays on
+    the 13 city scans reduced on the card (-r 20) in their true poses, the
+    three writers, ``extract_gridlines`` and ``extract_floorplan`` (50-200
+    cm band).  Gates: at least 95% of the >= 2 m segments within 15 cm of a
+    facade line (the JAX package at 1/20 density: 139 of 141) and at least
+    80% of the facade length in view covered (the JAX package there:
+    0.8779; scripts/reference_floorplan_city.py); card against CPU on 3
+    scans, every 20th point: hits and visits identical.  Prints the ray
+    tiles, the samples and the host time of ``hough_lines_p``."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.models import floorplan, grid2d
+    from tpu3dtk_torch.ops.lines import hough_lines_p
+    from tpu3dtk_torch.utils.metrics import metrics
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import reference_floorplan_city as ref
+
+    t_phase = time.perf_counter()
+    n_pts = sum(map(len, world))
+    metrics.reset()
+    k12_zero()
+    _sync()
+    t0 = time.perf_counter()
+    g = grid2d.make_occupancy_grid(world, origins, grid2d.Grid2DParams(resolution=GRID_RES),
+                                   device=CARD)
+    _sync()
+    g_s = time.perf_counter() - t0
+    tiles = int(metrics.counters[grid2d.RAY_TILES].total)
+    samples = int(g.visits.sum() - g.hits.sum())
+    phase(39, "grid", f"make_occupancy_grid of {len(world)} scans ({n_pts} points) at {GRID_RES:g} "
+          f"cm: {g.hits.shape[0]} x {g.hits.shape[1]} cells, {g_s:.2f} s, {tiles} ray tiles of at "
+          f"most {grid2d._TILE_SAMPLES['cuda']} samples, {samples} free-space samples; "
+          f"{k12_check('make_occupancy_grid')}")
+    check(int(g.hits.sum()) == n_pts, "occupancy grid: hits != points")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        g.write_pgm(os.path.join(tmp, "g.pgm"))
+        n_gp = grid2d.write_gnuplot(g, os.path.join(tmp, "g.dat"))
+        grid2d.write_world(g, os.path.join(tmp, "g.w"))
+        w_s = time.perf_counter() - t0
+        sizes = [os.path.getsize(os.path.join(tmp, f)) for f in ("g.pgm", "g.dat", "g.w")]
+    phase(39, "grid", f"writers (pgm, gnuplot, world) {w_s:.2f} s (host): {sizes} bytes, "
+          f"{n_gp} occupied cells")
+    k12_zero()
+    t0 = time.perf_counter()
+    lines = grid2d.extract_gridlines(g, device=CARD)
+    phase(39, "grid", f"extract_gridlines: {len(lines)} segments in {time.perf_counter() - t0:.2f} s; "
+          f"{k12_check('extract_gridlines')}")
+    k12_zero()
+    t0 = time.perf_counter()
+    fp_params = floorplan.FloorplanParams(resolution=GRID_RES, y_min=ref.BAND[0], y_max=ref.BAND[1])
+    segs = floorplan.extract_floorplan(world, origins, fp_params, device=CARD)
+    f_s = time.perf_counter() - t0
+    launches = k12_check("extract_floorplan")
+    band = grid2d.make_occupancy_grid(world, origins, grid2d.Grid2DParams(
+        resolution=GRID_RES, y_min=ref.BAND[0], y_max=ref.BAND[1], count_free=False), device=CARD)
+    img = (band.hits > 0).astype(np.uint8) * 255
+    t0 = time.perf_counter()
+    hough_lines_p(img, 1, np.pi / 180, fp_params.min_votes, int(fp_params.min_length / GRID_RES),
+                  int(fp_params.max_gap / GRID_RES))
+    h_s = time.perf_counter() - t0
+    long_, ok = ref.segments_near_facades(segs)
+    share, seen = ref.facade_coverage(segs, band.hits, band.origin)
+    phase(39, "floorplan", f"extract_floorplan: {len(segs)} segments in {f_s:.2f} s, of it "
+          f"hough_lines_p {h_s:.2f} s on the host ({img.shape[0]} x {img.shape[1]} image, "
+          f"{int((img > 0).sum())} set pixels); {ok} of {len(long_)} segments >= 2 m within 15 cm "
+          f"of a facade line; facade coverage {share:.4f} of {seen} samples in view; {launches}")
+    check(len(long_) > 0 and ok >= FLOOR_NEAR_SHARE * len(long_), "floor plan: segments off the facades")
+    check(share >= FLOOR_COVERAGE, f"floor plan covers {share} of the facades in view")
+    # card against CPU: 3 scans, every 20th point
+    small = [w[::20] for w in city_small[:3]]
+    p = grid2d.Grid2DParams(resolution=GRID_RES)
+    t0 = time.perf_counter()
+    gc = grid2d.make_occupancy_grid(small, origins[:3], p, device=CARD)
+    c_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp = grid2d.make_occupancy_grid(small, origins[:3], p, device="cpu")
+    p_s = time.perf_counter() - t0
+    same = np.array_equal(gc.hits, gp.hits) and np.array_equal(gc.visits, gp.visits)
+    phase(39, "grid", f"card against CPU on 3 scans, every 20th point ({sum(map(len, small))} "
+          f"points): {c_s:.2f} s vs {p_s:.2f} s; hits and visits identical: {same}")
+    check(same, "occupancy grid: card and CPU counts differ")
+    phase(39, "floorplan", f"phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
+def fbr_phase(locals_, true_mats):
+    """Phase 40: ``register_fbr`` with 3600 x 1000 equirectangular panoramas,
+    ORB (2000 features) and then SIFT, on two pairs (scripts/
+    reference_fbr_city.py's): city scans 0 and 1, and scan 0 against
+    itself turned 0.15 rad and moved (50, 0, 30) cm.  Gates: the relative
+    pose's errors no worse than the JAX package's on the same pair
+    (CPU, OpenCV) + (5 cm, 0.5 deg).  Prints the features, matches,
+    inliers, and the card time of detection and of matching."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.models import fbr
+    from tpu3dtk_torch.ops import features
+    from tpu3dtk_torch.ops.panorama import PanoramaParams, project_panorama
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import reference_fbr_city as ref
+
+    t_phase = time.perf_counter()
+    W, H = FBR_SIZE
+    for name, (m, d, T0, T1) in ref.pairs(locals_[:2], true_mats[:2]).items():
+        pano = PanoramaParams(width=W, height=H)
+        img = torch.as_tensor(project_panorama(m, pano).to_image(), device=CARD)
+        img_d = torch.as_tensor(project_panorama(d, pano).to_image(), device=CARD)
+        for det in ("orb", "sift"):
+            if det == "orb":
+                detect = lambda im: features.orb_detect_and_compute(im, FBR_FEATURES)  # noqa: E731
+                norm = "hamming"
+            else:
+                detect = lambda im: features.sift_detect_and_compute(im, FBR_FEATURES)  # noqa: E731
+                norm = "l2"
+            k12_zero()
+            detect(img)
+            _sync()
+            t0 = time.perf_counter()
+            kp, des = detect(img)
+            _sync()
+            det_ms = (time.perf_counter() - t0) * 1e3
+            _kd, des_d = detect(img_d)
+            _sync()
+            t0 = time.perf_counter()
+            features.bf_knn_match(des_d, des, 2, norm)
+            _sync()
+            match_ms = (time.perf_counter() - t0) * 1e3
+            _sync()
+            t0 = time.perf_counter()
+            r = fbr.register_fbr(m, d, fbr.FbrParams(panorama=pano, detector=det,
+                                                     n_features=FBR_FEATURES), device=CARD)
+            r_s = time.perf_counter() - t0
+            launches = k12_check(f"register_fbr {det}")
+            dt, dr = ref.pose_errors(r["T"], T0, T1)
+            want = FBR_REF[(name, det)]
+            phase(40, "fbr", f"{name}, {det}: {r['n_features']} features, {r['n_matches']} "
+                  f"matches, {r['n_inliers']} inliers; register_fbr {r_s:.2f} s, detection "
+                  f"{det_ms:.2f} ms a {W} x {H} panorama, matching {match_ms:.3f} ms "
+                  f"({len(des_d)} x {len(des)}); error {dt:.4f} cm, {dr:.4f} deg (the JAX "
+                  f"package's {want[0]:.4f} cm, {want[1]:.4f} deg); {launches}")
+            check(np.isfinite(r["T"]).all(), "register_fbr: non-finite pose")
+            check(dt <= want[0] + FBR_MARGIN[0] and dr <= want[1] + FBR_MARGIN[1],
+                  f"register_fbr {name} {det}: worse than the JAX package's + margin")
+    phase(40, "fbr", f"phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
+def domain_phases(locals_, true_mats):
+    """Phases 36, 37, 39 and 40 on the city (38 runs on the h468 scans and
+    the room, inside :func:`main`)."""
+    import numpy as np
+
+    origins = [np.asarray(T)[:3, 3] for T in true_mats]
+    gps_fusion_phase(locals_[0])
+    thermo_calibration_phase(locals_[0])
+    world = _city_reduced(locals_, true_mats)
+    from tpu3dtk_torch.core import math3d
+
+    raw_world = [np.asarray(math3d.transform3(np.asarray(T), loc.astype(np.float64)))
+                 for loc, T in zip(locals_[:3], true_mats[:3])]
+    floorplan_phase(world, origins, raw_world)
+    del world, raw_world
+    fbr_phase(locals_, true_mats)
 
 
 def main() -> int:
@@ -4210,7 +4871,7 @@ def main() -> int:
     runs = {}
     for name in ("cuda", "cpu"):
         scans = [
-            Scan.from_points(locals_[k], f"{k:03d}", odo_mats[k]) for k in range(4)
+            Scan.from_points(locals_[k], f"{k:03d}", odo_mats[k]) for k in range(PLAIN_SCANS)
         ]
         for s in scans:
             s.device = name
@@ -4224,7 +4885,7 @@ def main() -> int:
     di = max(abs(a["iterations"] - b["iterations"]) for a, b in zip(cres, pres))
     phase(
         5, "plain",
-        f"4 scans: cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; max pose diff "
+        f"{PLAIN_SCANS} scans: cuda {c_s:.2f} s vs cpu plain {p_s:.2f} s; max pose diff "
         f"{dt:.4f} cm / {dr:.2e} rot; max iteration diff {di}",
     )
     check(dt <= 0.5 and dr <= 1e-3, "card and plain path poses disagree")
@@ -4248,6 +4909,8 @@ def main() -> int:
     velodyne_launches = velodyne_phase()
     veloslam_launches, veloslam_k1 = veloslam_phase()
     search_phase(reduced, true_mats)
+    cylinder_phase(locals_, true_mats)
+    building_phase()
     del reduced, locals_
 
     k2 = bremen_phases(dev, IcpParams(
@@ -4274,6 +4937,7 @@ def main() -> int:
         "launches_veloslam": veloslam_launches,
         "launches_collision": k2["k1_launches_collision"],
         "launches_recon_people": 0,
+        "launches_slice10": 0,
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -4312,6 +4976,7 @@ def main() -> int:
         "launches_formats_las": k2["launches_formats"]["las"],
         "launches_formats_e57": k2["launches_formats"]["e57"],
         "launches_slice9": 0,
+        "launches_slice10": 0,
         **({"launches_condensed": condensed["launches"]} if condensed["engine"] == "K2" else {}),
     }]}))
     print(smi_line, flush=True)

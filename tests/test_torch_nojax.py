@@ -1,6 +1,6 @@
-"""The port runs without JAX: with ``import jax`` made impossible, the
-package, its slice modules, the CLI parsers and the interop converters
-still import and work.  Without a
+"""The port runs without JAX and without OpenCV: with ``import jax`` and
+``import cv2`` made impossible, the package, its slice modules, the CLI
+parsers and the interop converters still import and work.  Without a
 CUDA card the package's default device raises: the CPU is only used
 when it is asked for."""
 
@@ -13,6 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = """
 import sys
 sys.modules["jax"] = None
+sys.modules["cv2"] = None
 import tpu3dtk_torch
 from tpu3dtk_torch import interop, synth
 from tpu3dtk_torch.cli import slam6d
@@ -110,8 +111,31 @@ import numpy as np
 vol = interop.tsdf_volume_from_numpy({"params": {}, "origin": np.zeros(3), "dims": (2, 2, 2),
                                       "tsdf": np.ones((2, 2, 2)), "weight": np.zeros((2, 2, 2))})
 assert vol.dims == (2, 2, 2) and str(vol.device) == "cpu"
+from tpu3dtk_torch.models import building, calibration, curvefusion, cylinder, fbr
+from tpu3dtk_torch.models import floorplan, gps, grid2d, thermo
+from tpu3dtk_torch.ops import features, lines
+assert callable(gps.latlon_to_utm) and callable(curvefusion.fuse_trajectories)
+assert callable(thermo.colorize_scan) and callable(calibration.calibrate_from_chessboard_images)
+assert callable(cylinder.detect_cylinders) and callable(building.build_model)
+assert callable(grid2d.extract_gridlines) and callable(floorplan.extract_floorplan)
+assert callable(fbr.register_fbr) and callable(lines.hough_lines_p)
+assert callable(features.sift_detect_and_compute) and features.ORB_PATTERN.shape == (256, 4)
+assert callable(synth.building_room)
+assert interop.grid2d_params_from({"resolution": 5.0}).resolution == 5.0
+g = interop.occupancy_grid_from_numpy({"origin": np.zeros(2), "resolution": 10.0,
+                                       "hits": np.zeros((2, 3)), "visits": np.ones((2, 3))})
+assert g.hits.dtype == np.int32 and g.occupancy.shape == (2, 3)
+assert interop.floorplan_params_from({"min_votes": 9}).min_votes == 9
+assert interop.cylinder_params_from({"knn": 8}).knn == 8
+assert interop.fusion_params_from({"window": 6}).window == 6
+cam = interop.camera_from_numpy({"fx": 1, "fy": 2, "cx": 3, "cy": 4, "width": 5, "height": 6})
+assert cam.fy == 2.0 and cam.R.shape == (3, 3)
+fp = interop.fbr_params_from({"detector": "sift", "panorama": {"width": 90, "height": 45}})
+assert fp.detector == "sift" and fp.panorama.width == 90
+lines_out = lines.hough_lines_p(np.eye(40, dtype=np.uint8) * 255, 1, np.pi / 180, 10, 10, 2)
+assert lines_out.shape[1] == 4 and len(lines_out) >= 1
 bad = [m for m in sys.modules if m == "tpu3dtk" or m.startswith("tpu3dtk.")
-       or (m.startswith("jax") and sys.modules[m] is not None)]
+       or ((m.startswith("jax") or m.startswith("cv2")) and sys.modules[m] is not None)]
 assert not bad, bad
 print("ok")
 """

@@ -110,3 +110,22 @@ def test_velodyne_box_changes_only_the_returns_it_blocks():
     face = np.minimum(np.abs(w - lo), np.abs(w - hi)).min(1)
     assert on_box.sum() == changed.sum()
     assert face[on_box].max() <= 0.3
+
+
+def test_building_room_openings_hold_no_points():
+    """synth.building_room's doors and windows let every ray through: no
+    point lies inside an opening (shrunk by 3 sigma of the 0.5 cm noise),
+    while the wall around each opening is sampled."""
+    pts, centre, boxes = synth.building_room(n_pts=400_000, seed=37)
+    assert len(boxes) == 6 and {b[4] for b in boxes} == {"door", "window"}
+    assert np.allclose(centre, 0.5 * (synth.VELO_ROOM_LO + synth.VELO_ROOM_HI))
+    margin = 1.5
+    for ax, _side, lo, hi, _kind in boxes:
+        pad = np.full(3, -margin)
+        pad[ax] = 3 * margin  # across the wall: the wall's own noise band
+        inside = np.all((pts > lo - pad) & (pts < hi + pad), axis=1)
+        assert inside.sum() == 0
+        ring = np.full(3, 30.0)
+        ring[ax] = 3 * margin
+        near = np.all((pts > lo - ring) & (pts < hi + ring), axis=1)
+        assert near.sum() > 20

@@ -17,7 +17,9 @@ kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
 - ``ops``    voxel reduction, brute NN and cell-list NN (each a plain
   torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``),
   k-NN, the four normal estimators, range/box/segment searches, panorama
-  projections (host numpy), surface nets (on the field's device)
+  projections (host numpy), surface nets (on the field's device), the
+  probabilistic Hough line transform (host numpy) and the FAST / ORB /
+  SIFT detectors with a brute-force matcher (torch)
 - ``models`` minimizers, ICP (while-style loop, the chained cell-list
   engine, loop-closure windows), sequential registration, LUM graph
   relaxation (on the device and the host path), the correspondence
@@ -26,7 +28,9 @@ kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
   Hough plane detection (SHT, RHT), plane-based registration (preg6d),
   segmentation (FH, region growing, graph cut), the Kalman + Hungarian
   tracker, veloslam, TSDF fusion, IMLS and Poisson meshing, people
-  removal, collision detection
+  removal, collision detection, GPS and curve fusion, thermal mapping and
+  camera calibration, cylinders, building models, occupancy grids and
+  floor plans, feature-based registration
 - ``utils``  named-phase metrics, key-value config files and scan ranges
 - ``cli``    torchslam (the slam6D-style command; sequential ICP, ``-n`` /
   ``-C`` graph LUM, ``-L``/``-G`` GraphPipeline, ``--cache-mb``,

@@ -52,8 +52,10 @@ from .models.icp import IcpParams
 from .ops.nn_cell_list import CellListModel
 
 __all__ = [
-    "collision_params_from", "corr_cache_from_numpy", "elch_params_from",
-    "fh_params_from", "graph_pipeline_from", "hough_params_from",
+    "camera_from_numpy", "collision_params_from", "corr_cache_from_numpy",
+    "cylinder_params_from", "elch_params_from", "fbr_params_from", "fh_params_from",
+    "floorplan_params_from", "fusion_params_from", "graph_pipeline_from",
+    "grid2d_params_from", "hough_params_from", "occupancy_grid_from_numpy",
     "line_scan_set_from_numpy", "lum_params_from", "mesh_params_from",
     "people_remover_params_from", "planes_from_numpy", "poisson_params_from",
     "preg_params_from", "scans_from_numpy", "srr_params_from",
@@ -189,6 +191,75 @@ def collision_params_from(fields: Mapping):
     from .models.collision import CollisionParams
 
     return CollisionParams(**_carried(fields, ("chunk",)))
+
+
+def grid2d_params_from(fields: Mapping):
+    """The port's ``grid2d.Grid2DParams`` from a JAX one's fields."""
+    from .models.grid2d import Grid2DParams
+
+    return Grid2DParams(**_carried(fields, ()))
+
+
+def occupancy_grid_from_numpy(state: Mapping):
+    """A ``grid2d.OccupancyGrid`` from a JAX one's fields: ``origin`` [2]
+    f64, ``resolution``, ``hits`` and ``visits`` [W,H] int32."""
+    from .models.grid2d import OccupancyGrid
+
+    return OccupancyGrid(
+        origin=np.array(state["origin"], dtype=np.float64),
+        resolution=float(state["resolution"]),
+        hits=np.array(state["hits"], dtype=np.int32),
+        visits=np.array(state["visits"], dtype=np.int32),
+    )
+
+
+def floorplan_params_from(fields: Mapping):
+    """The port's ``floorplan.FloorplanParams`` from a JAX one's fields."""
+    from .models.floorplan import FloorplanParams
+
+    return FloorplanParams(**_carried(fields, ()))
+
+
+def cylinder_params_from(fields: Mapping):
+    """The port's ``cylinder.CylinderParams`` from a JAX one's fields."""
+    from .models.cylinder import CylinderParams
+
+    return CylinderParams(**_carried(fields, ()))
+
+
+def fusion_params_from(fields: Mapping):
+    """The port's ``curvefusion.FusionParams`` from a JAX one's fields."""
+    from .models.curvefusion import FusionParams
+
+    return FusionParams(**_carried(fields, ()))
+
+
+def camera_from_numpy(state: Mapping):
+    """A ``thermo.Camera`` from a JAX one's fields: the intrinsics,
+    ``width``/``height``, ``dist`` (k1, k2, p1, p2, k3), ``R`` [3,3] and
+    ``t`` [3] as numpy."""
+    from .models.thermo import Camera
+
+    return Camera(
+        fx=float(state["fx"]), fy=float(state["fy"]), cx=float(state["cx"]),
+        cy=float(state["cy"]), width=int(state["width"]), height=int(state["height"]),
+        dist=tuple(float(v) for v in state.get("dist", (0.0,) * 5)),
+        R=np.array(state.get("R", np.eye(3)), dtype=np.float64),
+        t=np.array(state.get("t", np.zeros(3)), dtype=np.float64),
+    )
+
+
+def fbr_params_from(fields: Mapping):
+    """The port's ``fbr.FbrParams`` from a JAX one's fields; ``panorama``
+    (a JAX ``PanoramaParams`` or its fields) becomes the port's."""
+    from .models.fbr import FbrParams
+    from .ops.panorama import PanoramaParams
+
+    kw = _carried(fields, ())
+    if "panorama" in kw:
+        pano = kw["panorama"]
+        kw["panorama"] = PanoramaParams(**_carried(pano if isinstance(pano, Mapping) else vars(pano), ()))
+    return FbrParams(**kw)
 
 
 def tracker_from_numpy(state: Mapping, device="cpu"):

@@ -126,9 +126,9 @@ def pair_stats(m, d, w) -> PairStats:
 def _finish(R, stats: PairStats):
     """Assemble T = [R | cm - R cd] and the f64 RMS error."""
     t = stats.centroid_m - R @ stats.centroid_d
-    T = torch.eye(4, dtype=R.dtype, device=R.device)
-    T[:3, :3] = R
-    T[:3, 3] = t
+    # built out of place, so that torch.func.vmap can batch it
+    last = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype, device=R.device)
+    T = torch.cat([torch.cat([R, t[:, None].to(R.dtype)], 1), last], 0)
     err = torch.sqrt(stats.sum_d2 / torch.clamp(stats.n, min=1.0))
     return T, err
 
@@ -158,11 +158,10 @@ def align_quat(stats: PairStats):
     S = (stats.S / torch.clamp(stats.n, min=1.0)).to(torch.float32)
     trace = torch.trace(S)
     a = torch.stack([S[1, 2] - S[2, 1], S[2, 0] - S[0, 2], S[0, 1] - S[1, 0]])
-    Q = torch.empty((4, 4), dtype=S.dtype, device=S.device)
-    Q[0, 0] = trace
-    Q[0, 1:] = a
-    Q[1:, 0] = a
-    Q[1:, 1:] = S + S.T - torch.eye(3, dtype=S.dtype, device=S.device) * trace
+    Q = torch.cat([
+        torch.cat([trace[None], a])[None],
+        torch.cat([a[:, None], S + S.T - torch.eye(3, dtype=S.dtype, device=S.device) * trace], 1),
+    ])
     q = _max_eigvec4(Q)  # [w, x, y, z] in the reference's convention
     R = math3d.quat_to_matrix3(q).to(S.dtype)
     return _finish(R, stats)

@@ -17,6 +17,9 @@ Each returns (locals [n][n_pts,3] f32, true_mats, odo_mats).
 :func:`write_scan_dir` stores such a sequence as a uos scan directory;
 :func:`write_net_graph` stores a pose graph as a ``.net`` file.
 
+- :func:`building_room`: a scanner at the centre of a 20 x 12 x 4 m room
+  (the velodyne room's box) with doors and windows cut in its walls, for
+  ``models.building``.
 - :func:`velodyne_capture`: one revolution of an HDL-64E in a box room,
   ray-cast and packed as the raw ``.bin`` capture ``-f velodyne`` reads
   (the JAX package has no writer; this one follows the decoder,
@@ -35,7 +38,7 @@ from .io import velodyne
 from .io.writer import write_pose, write_uos
 
 __all__ = [
-    "city_planes", "ring_normals", "synth_city", "synth_linescans", "synth_loop",
+    "building_room", "city_planes", "ring_normals", "synth_city", "synth_linescans", "synth_loop",
     "synth_ring", "synth_velodyne", "velodyne_capture", "write_net_graph",
     "write_scan_dir", "write_velodyne_dir",
 ]
@@ -415,6 +418,58 @@ VELO_MIN_M, VELO_MAX_M = 2.2, 120.0
 # below the sensor's first position
 VELO_ROOM_LO = np.array([-700.0, -180.0, -600.0])
 VELO_ROOM_HI = np.array([1300.0, 220.0, 600.0])
+
+
+# building_room's openings: (wall axis, wall side (0: lo, 1: hi), along-wall
+# lo, along-wall hi, height lo, height hi, kind); heights from the floor
+ROOM_OPENINGS = (
+    (2, 0, 0.0, 90.0, 0.0, 210.0, "door"),
+    (0, 1, -200.0, -110.0, 0.0, 210.0, "door"),
+    (2, 1, -300.0, -180.0, 100.0, 200.0, "window"),
+    (2, 1, 500.0, 620.0, 100.0, 200.0, "window"),
+    (0, 0, 100.0, 220.0, 100.0, 200.0, "window"),
+    (2, 0, 700.0, 820.0, 100.0, 200.0, "window"),
+)
+
+
+def building_room(n_pts=2_000_000, noise=0.5, seed=37, lo=VELO_ROOM_LO, hi=VELO_ROOM_HI,
+                  openings=ROOM_OPENINGS):
+    """A terrestrial scan from the centre of a box room (``lo``-``hi``,
+    y up; the velodyne room: 20 m along x, 12 m along z, 4 m high) with
+    ``openings`` cut in its walls: rays in uniformly random directions
+    hit the nearest face and return with ``noise`` cm of Gaussian noise,
+    except where they leave through an opening (no return).  Each
+    opening is (wall axis 0: x = const / 2: z = const, side 0: lo / 1:
+    hi, along-wall lo, hi, height above the floor lo, hi, kind).
+    Returns (points [~n_pts, 3] f32 in the room's frame, the scanner
+    position [3], openings as (axis, side, box lo [3], box hi [3],
+    kind))."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    c = 0.5 * (lo + hi)
+    d = rng.normal(size=(n_pts, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        t_face = np.where(d > 0, (hi - c) / d, (lo - c) / d)
+    axis = np.argmin(t_face, 1)
+    t = t_face[np.arange(n_pts), axis]
+    p = c + d * t[:, None]
+    boxes = []
+    keep = np.ones(n_pts, bool)
+    for ax, side, a0, a1, h0, h1, kind in openings:
+        along = 2 if ax == 0 else 0
+        wall = (lo if side == 0 else hi)[ax]
+        b_lo, b_hi = np.empty(3), np.empty(3)
+        b_lo[ax], b_hi[ax] = wall, wall
+        b_lo[along], b_hi[along] = a0, a1
+        b_lo[1], b_hi[1] = lo[1] + h0, lo[1] + h1
+        boxes.append((ax, side, b_lo, b_hi, kind))
+        on = (axis == ax) & (np.sign(d[:, ax]) == (1 if side else -1))
+        inside = (p[:, along] > a0) & (p[:, along] < a1) & (p[:, 1] > b_lo[1]) & (p[:, 1] < b_hi[1])
+        keep &= ~(on & inside)
+    p = p[keep] + rng.normal(0, noise, (int(keep.sum()), 3))
+    return p.astype(np.float32), c, boxes
+
 
 
 def velodyne_capture(pose, lo=VELO_ROOM_LO, hi=VELO_ROOM_HI, intensity=100, boxes=()) -> bytes:
