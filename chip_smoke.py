@@ -53,7 +53,7 @@ exit code and no result line):
 16. variants — ``torchslam -L 1 -G 3`` and ``-L 3 -G 4`` on the same
    directory (exit 0, ELCH and LUM frames, finite poses, ATE below
    odometry's, beside phase 12's); one ``-G 2`` relaxation of the
-   sequential ICP result of its first 30 scans on the card and on the CPU:
+   sequential ICP result of its first 20 scans on the card and on the CPU:
    the same poses.
 13. plain graph — the same GraphPipeline on a 32-scan ring of 2048-point
    scans (a corridor a third of the h468 one's size, so the clouds are as
@@ -109,9 +109,9 @@ exit code and no result line):
    header, K1 launches = iterations in both runs, poses within 0.05 cm /
    1e-4 of each other.
 20. subgraph — ``subgraph_slam`` (chunks of 10, clpairs 100, 50 cm) on the
-   h468 scans from odometry: the LUM metascan level on all 468 (metascans
-   of ~144k points: host LUM with chained covariances), ``icp_only`` on
-   the first 240 (chained ICP); K1 launches = clpairs link calls + LUM
+   h468 scans from odometry: the LUM metascan level on the first 360 (a
+   lap; metascans of ~144k points: host LUM with chained covariances),
+   ``icp_only`` on the first 180 (chained ICP); K1 launches = clpairs link calls + LUM
    link calls, K2 launches = chained link calls + loop trips; ATE below
    odometry's.
 21. srr — pre-registration and semi-rigid registration of 2000 line
@@ -262,6 +262,32 @@ these paths, and each phase checks both stay at 0 launches):
    (scripts/reference_fbr_city.py) + 5 cm / 0.5 deg; the card time of
    detection and of matching.
 
+Slice 11 (the viewer, the Bkd forest and multi-process execution; the
+renders launch neither kernel, the forest and the sharded ICP / LUM launch
+K1, and each phase counts both):
+
+41. viewer — city scan 0 (10^6 raw points) at its registered pose (phase
+   8's final frame) rendered at 960 x 720, point size 1 and 3, and the 468
+   h468 scans at phase 4's registered poses through torchshow's octree and
+   ``lod_select`` at a budget of 10^6 points: each render on the card
+   against the same call with device="cpu" (no pixel may differ, depth
+   equal where both are set; the CPU tests find the JAX package's image
+   exactly), the card's time by CUDA events and the points a second.
+42. torchshow — ``torchshow -r 10 -O 0 --orbit 2 --animate 2`` on the first
+   8 scans of phase 4's directory with their registered .frames, on the
+   card and with --device cpu: exit 0, the same PNGs pixel for pixel.
+43. bkd — a ``BkdForest`` of city scan 0 (reduced, registered) filled in 15
+   inserts (4 blocks), one point removed; 65536 points of scan 1 asked of
+   it three times: K1 launches = blocks x calls, the same found flags and
+   points as one plain ``nn_brute`` over the alive points, d2 within 1e-2.
+44. multi-device — (a) a world of one NCCL rank: ``icp_pair_sharded`` on
+   the first h468 match and ``lum_run_sharded`` on phase 11's final graph
+   (2 iterations) bit-identical to ``icp_pair`` and ``lum_run``, K1 launches
+   = iterations and link calls; (b) ``torchslam --distributed`` as two
+   processes on gloo sharing the card (NPROC=2), on the first 8 scans of
+   phase 4's directory with -G 1 -I 5, against the one-process run: final
+   poses within 1e-2 cm, only process 0 writing frames.
+
 Phase 3 also times a library yardstick for K1: ``torch.cdist(q,
 m).min(dim=1)`` at the first match's shape in both compute modes (no
 mask; a reference point, not a port).  A line before the last is one
@@ -299,7 +325,7 @@ MAX_DIST = 50.0
 # the JAX package gave 0.16-0.56 cm on scans 1-4 of this data (PERF.md)
 GATE_MEDIAN_CM = 1.0
 PLAIN_SCANS = 2  # phase 5: card against the CPU plain path
-RELAX_SCANS = 30  # phase 16: the -G 2 relax card against the CPU on the first 30 scans
+RELAX_SCANS = 20  # phase 16: the -G 2 relax card against the CPU on the first 20 scans
 # the GraphPipeline at this regime (bench.py:413-425); ATE gate: the JAX
 # package's own result is 18.42 cm (BENCH_r05.json; odometry 68.58 cm)
 GRAPH_ATE_GATE_CM = 21.0
@@ -640,7 +666,8 @@ def graph_phases(reduced, true_mats, odo_mats, seq_only):
     block-CG solve of its final system, and the CLI graph paths.
     ``reduced``: all h468 scans, reduced on the card; ``seq_only``: (ATE,
     median relative-pose error) of phase 4's sequential-only run.
-    Returns K1's launch count on the main path and phase 11's ATE."""
+    Returns K1's launch count on the main path, phase 11's ATE and K1's
+    launches in phase 44 (a)."""
     import numpy as np
     import torch
 
@@ -770,6 +797,8 @@ def graph_phases(reduced, true_mats, odo_mats, seq_only):
     phase(11, "graph", f"one final-relax iteration ({len(links)} links), {relax_ms:.1f} ms "
           f"unprofiled; under torch.profiler: {profile_text(profile_region(relax_once))}")
     block_cg_phase(pipe._device_points, links, pos0, theta0, len(scans))
+    multi_launches = world_of_one_phase(
+        reduced, odo_mats, pipe._device_points, links, pos0, theta0, len(scans))
     del pipe, scans
     torch.cuda.empty_cache()
 
@@ -837,7 +866,7 @@ def graph_phases(reduced, true_mats, odo_mats, seq_only):
     check(len(ccl) >= 2, f"only {len(ccl)} closures on the small ring")
     check(ccl == pcl, "card and plain path close different loops")
     check(dt <= 0.5 and dr <= 1e-3, "card and plain path poses disagree")
-    return launches, ate
+    return launches, ate, multi_launches
 
 
 def cli_graph(scan_dir, out_dir, idents, L, G):
@@ -1621,6 +1650,10 @@ def bremen_phases(dev, params_city):
     people_phase(locals_, true_mats)
     k1_collision, collision_k1 = collision_phase(locals_, true_mats)
     domain_phases(locals_, true_mats)
+    # ---- phases 41 (city) and 43: a registered city scan rendered, the
+    # Bkd forest on the reduced city scans 0 and 1 ------------------------
+    viewer_city_phase(locals_, mats)
+    k1_bkd = bkd_phase(trio[:2], mats[:2])
     # ---- phases 23, 26, 24: planes, scan_red, planereg on the city ------
     with tempfile.TemporaryDirectory() as tmp:
         scan_dir = os.path.join(tmp, "scans")
@@ -1649,6 +1682,7 @@ def bremen_phases(dev, params_city):
         "bound_by": bound_by, "instr_bound_ms": u_instr_ms, "clamped_device_ms": d_ms,
         "launches_formats": formats, "k1_launches_scandiff": k1_scandiff, "scandiff": scandiff,
         "k1_launches_collision": k1_collision, "collision": collision_k1,
+        "k1_launches_bkd": k1_bkd,
     }
 
 
@@ -1658,9 +1692,12 @@ def bremen_phases(dev, params_city):
 
 CARD = "cuda"  # the device the phases run their paths on
 CACHE_MB = 64
-# phase 20: SubgraphParams at the h468 regime; the icp_only run takes the
-# first SUBGRAPH_ICP_SCANS scans (chunks of 10: metascans of ~144k points)
-SUBGRAPH_ICP_SCANS = 240
+# phase 20: SubgraphParams at the h468 regime; the LUM run takes the first
+# SUBGRAPH_LUM_SCANS scans (a lap: scan 359 comes back to scan 0), the
+# icp_only run the first SUBGRAPH_ICP_SCANS (chunks of 10: metascans of
+# ~144k points)
+SUBGRAPH_LUM_SCANS = 360
+SUBGRAPH_ICP_SCANS = 180
 # phase 21: a mobile-mapping length of line scans, with a lateral drift a
 # line that leaves the last window within the 50 cm match radius
 SRR_LINES = 2000
@@ -1957,7 +1994,7 @@ def subgraph_phase(reduced, true_mats, odo_mats):
         iterations=50, lum_iterations=25,
     )
     out = {}
-    for icp_only, n in ((False, H468_SCANS), (True, SUBGRAPH_ICP_SCANS)):
+    for icp_only, n in ((False, SUBGRAPH_LUM_SCANS), (True, SUBGRAPH_ICP_SCANS)):
         scans = fresh_scans(reduced[:n], CARD)
         truth = np.stack(true_mats[:n])
         metrics.reset()
@@ -2142,12 +2179,17 @@ def k12_zero():
     nn_cell_list_cuda.cell_list_rows_kernel.launches = 0
 
 
-def k12_check(what):
-    """K1 and K2 launched no time on the path since :func:`k12_zero`."""
+def k12_check(what, tally=None):
+    """K1 and K2 launched no time on the path since :func:`k12_zero`;
+    ``tally``: the key of :data:`SLICE11` that adds this K1 count (K2 is
+    added to its ``k2``)."""
     from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
 
     k1 = nn_cuda.nn_brute_kernel.launches
     k2 = nn_cell_list_cuda.cell_list_rows_kernel.launches
+    if tally is not None:
+        SLICE11[tally] += k1
+        SLICE11["k2"] += k2
     check(k1 == 0 and k2 == 0, f"{what}: K1 launched {k1} times, K2 {k2}: no NN call of theirs "
           "is on this path")
     return f"K1 launches {k1}, K2 launches {k2}"
@@ -4606,6 +4648,395 @@ def domain_phases(locals_, true_mats):
     fbr_phase(locals_, true_mats)
 
 
+# ---- phases 41-44: the viewer, the Bkd forest and multi-process execution
+# (slice 11).  The renders and the forest run on the card and, for the
+# comparison, the same calls with device="cpu"; the forest and the sharded
+# ICP / LUM run K1, and each phase counts it.
+
+VIEW_W, VIEW_H = 960, 720  # torchshow's default image
+LOD_BUDGET = 1_000_000  # phase 41: --lod's point budget on the h468 scene
+SHOW_SCANS = 8  # phases 42 and 44: the first scans of phase 4's directory
+# K1 and K2 launches of phases 41-44, read just after each of their paths
+# ran (the kernels line): the viewer's K1, torchslam --distributed's K1
+# summed over its processes, and K2 over all of them
+SLICE11 = {"k1_viewer": 0, "k1_distributed_cli": 0, "k2": 0}
+# phase 43: the scan goes into the forest in this many inserts of its
+# level-0 capacity each: the forest then holds its levels 0-3, or levels
+# 1-3 and a part-filled buffer (bkd.h's binary-counter merge)
+BKD_INSERTS = 15
+BKD_QUERIES = 65536  # phase 43: scan 1's points asked of the forest
+LUM_SHARD_ITERS = 2  # phase 44: relaxation iterations on phase 11's final graph
+
+
+def _view(pts):
+    """torchshow's orbit camera of a cloud: its centre, radius and the
+    pose at 30 degrees azimuth."""
+    import numpy as np
+
+    from tpu3dtk_torch.ops import render
+
+    center = 0.5 * (pts.min(0) + pts.max(0))
+    radius = float(np.linalg.norm(pts.max(0) - pts.min(0))) * 0.9 + 1.0
+    return center, radius, render.orbit_pose(center, radius, 30.0)
+
+
+def render_card_vs_cpu(label, pts, pose, point_size):
+    """One render on the card against the same call on the CPU: no pixel
+    may differ (the CPU tests find the JAX package's image exactly) and
+    the depth is equal where both are set.  Returns the card's ms (CUDA
+    events, the image read back included)."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.ops import render
+
+    kw = dict(width=VIEW_W, height=VIEW_H, point_size=point_size)
+    pts_t = torch.as_tensor(np.asarray(pts, np.float32), device=CARD)
+    card = render.render_points(pts_t, pose, **kw)
+    t0 = time.perf_counter()
+    cpu = render.render_points(pts, pose, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    ms = cuda_ms(lambda: render.render_points(pts_t, pose, **kw), reps=5, warmup=1)
+    differ = float((card[0] != cpu[0]).any(-1).mean())
+    both = np.isfinite(card[1]) & np.isfinite(cpu[1])
+    dd = float(np.abs(card[1][both] - cpu[1][both]).max()) if both.any() else 0.0
+    cover = float(np.isfinite(card[1]).mean())
+    phase(41, "viewer", f"{label}: {len(pts)} points at {VIEW_W} x {VIEW_H}, point size {point_size}: "
+          f"card {ms:.3f} ms ({len(pts) / ms * 1e3:.4g} points/s), CPU {cpu_s * 1e3:.1f} ms; pixels "
+          f"differing {differ}, depth max diff {dd} where both set, {cover:.4f} of the pixels set")
+    check(cover > 0.01, f"{label}: hardly anything rendered")
+    check(differ == 0.0, f"{label}: {differ} of the pixels differ between the card and the CPU")
+    check(dd == 0.0 and np.array_equal(np.isnan(card[1]), np.isnan(cpu[1])),
+          f"{label}: the depth differs between the card and the CPU")
+    return ms
+
+
+def viewer_city_phase(city_locals, mats):
+    """Phase 41 (city): city scan 0's 10^6 raw points at their registered
+    pose (phase 8's final frame), rendered at point sizes 1 and 3."""
+    import numpy as np
+
+    world = (city_locals[0] @ mats[0][:3, :3].T + mats[0][:3, 3]).astype(np.float32)
+    _c, _r, pose = _view(world)
+    k12_zero()
+    for ps in (1, 3):
+        render_card_vs_cpu("city scan 0, registered", world, pose, ps)
+    phase(41, "viewer", k12_check("viewer", "k1_viewer"))
+
+
+def viewer_lod_phase(reduced, mats):
+    """Phase 41 (LOD): the 468 h468 scans, reduced, at phase 4's
+    registered poses, through torchshow's octree (leaf edge = radius /
+    1024) and ``lod_select`` at a budget of 10^6 (host numpy, one cut for
+    both renders), rendered on the card and on the CPU."""
+    import numpy as np
+
+    from tpu3dtk_torch.ops import octree, render
+
+    world = np.concatenate([
+        s.reduced_local() @ T[:3, :3].T + T[:3, 3] for s, T in zip(reduced, mats)])
+    center, radius, pose = _view(world)
+    t0 = time.perf_counter()
+    tree = octree.build_octree(world, max(radius / 1024.0, 1e-3))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sel, w = render.lod_select(tree, pose, width=VIEW_W, height=VIEW_H, budget=LOD_BUDGET)
+    lod_s = time.perf_counter() - t0
+    again = render.lod_select(tree, pose, width=VIEW_W, height=VIEW_H, budget=LOD_BUDGET)
+    phase(41, "viewer", f"--lod on the h468 scene: {len(world)} points, octree of depth {tree.depth} with "
+          f"{tree.n_leaves} leaves built in {build_s:.2f} s (host), lod_select {lod_s:.2f} s (host): "
+          f"{len(sel)} points for {int(w.sum())}")
+    check(0 < len(sel) <= LOD_BUDGET, f"lod_select gave {len(sel)} points for a budget of {LOD_BUDGET}")
+    check(np.array_equal(again[0], sel) and np.array_equal(again[1], w), "lod_select is not deterministic")
+    k12_zero()
+    render_card_vs_cpu("h468 scene through --lod", sel, pose, 1)
+    phase(41, "viewer", k12_check("viewer LOD", "k1_viewer"))
+
+
+def show_phase(tmp, scan_dir, frames_dir, idents):
+    """Phase 42: ``torchshow --orbit 2 --animate 2`` on the first scans of
+    phase 4's directory with their registered .frames, on the card and
+    with --device cpu: exit 0, the same PNGs pixel for pixel."""
+    import numpy as np
+
+    from tpu3dtk_torch.cli import show
+    from tpu3dtk_torch.io.png import read_png
+
+    d = os.path.join(tmp, "show")
+    os.makedirs(d)
+    for i in idents[:SHOW_SCANS]:
+        for name in (f"scan{i}.3d", f"scan{i}.pose"):
+            os.symlink(os.path.join(scan_dir, name), os.path.join(d, name))
+        os.symlink(os.path.join(frames_dir, f"scan{i}.frames"), os.path.join(d, f"scan{i}.frames"))
+    flags = [d, "-r", "10", "-O", "0", "--orbit", "2", "--animate", "2",
+             "--width", str(VIEW_W), "--height", str(VIEW_H)]
+    walls = {}
+    k12_zero()
+    for dev_name in (CARD, "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = show.main([*flags, "-o", os.path.join(tmp, f"show_{dev_name}"), "--device", dev_name])
+        walls[dev_name] = time.perf_counter() - t0
+        check(rc == 0, f"torchshow --device {dev_name} returned {rc}")
+    names = sorted(os.listdir(os.path.join(tmp, f"show_{CARD}")))
+    check(names == sorted(os.listdir(os.path.join(tmp, "show_cpu"))) and len(names) == 4,
+          f"torchshow wrote {names}")
+    differ = 0.0
+    for n in names:
+        a = read_png(os.path.join(tmp, f"show_{CARD}", n))
+        b = read_png(os.path.join(tmp, "show_cpu", n))
+        check(a.shape == (VIEW_H, VIEW_W, 3) and a.any(), f"torchshow {n}: empty or misshapen")
+        differ = max(differ, float((a != b).any(-1).mean()))
+    phase(42, "torchshow", f"{SHOW_SCANS} h468 scans (-r 10 -O 0), --orbit 2 --animate 2: {len(names)} PNGs, "
+          f"card {walls[CARD]:.2f} s, CPU {walls['cpu']:.2f} s (the scans read and reduced "
+          f"included); largest share of pixels differing {differ}; {k12_check('torchshow', 'k1_viewer')}")
+    check(differ == 0.0, "torchshow: the card's PNGs differ from the CPU's")
+
+
+def bkd_phase(reduced_city, mats):
+    """Phase 43: a ``BkdForest`` of city scan 0 (reduced, registered),
+    inserted in chunks into several blocks, one point removed; scan 1's
+    points asked of it.  ``find_closest`` must equal one plain
+    ``nn_brute`` over the alive points (points equal, d² within 1e-2) and
+    launch K1 once a block a call."""
+    import numpy as np
+    import torch
+
+    from tpu3dtk_torch.ops import nn as nn_ops
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+    from tpu3dtk_torch.ops.bkd import BkdForest
+
+    g = [(s.reduced_local() @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+         for s, T in zip(reduced_city, mats)]
+    chunk = -(-len(g[0]) // BKD_INSERTS)
+    t0 = time.perf_counter()
+    forest = BkdForest(buffer_size=chunk, device=CARD)
+    for k in range(0, len(g[0]), chunk):
+        forest.insert(g[0][k : k + chunk])
+    victim = g[0][len(g[0]) // 2]
+    removed = forest.remove(victim)
+    insert_s = time.perf_counter() - t0
+    blocks = len(forest._parts())
+    check(blocks >= 4, f"the forest holds {blocks} blocks, want >= 4")
+    check(removed >= 1 and forest.size() == len(g[0]) - removed, "remove lost count")
+    q = np.concatenate([victim[None], g[1][: BKD_QUERIES - 1]])
+    qm = np.ones(len(q), bool)
+    md2 = CITY_DIST**2
+    k12_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls = 3
+    for _ in range(calls):
+        pts, d2, found = forest.find_closest(q, qm, md2)
+    find_ms = (time.perf_counter() - t0) / calls * 1e3
+    launches = nn_cuda.nn_brute_kernel.launches
+    check(launches == blocks * calls, f"K1 launches {launches} != {blocks} blocks x {calls} calls")
+    SLICE11["k2"] += nn_cell_list_cuda.cell_list_rows_kernel.launches
+    check(nn_cell_list_cuda.cell_list_rows_kernel.launches == 0, "K2 launched on the forest")
+    alive = torch.as_tensor(forest.collect_pts(), device=CARD)
+    qt = torch.as_tensor(q, device=CARD)
+    idx, pd2, pfound = nn_ops.nn_brute(qt, torch.ones(len(q), dtype=torch.bool, device=CARD),
+                                       alive, torch.ones(len(alive), dtype=torch.bool, device=CARD),
+                                       float(np.float32(md2)))
+    pfound = pfound.cpu().numpy()
+    ppts = alive[idx].cpu().numpy()
+    pd2 = pd2.cpu().numpy()
+    agree = float((found == pfound).mean())
+    both = found & pfound
+    same_pt = float((pts[both] == ppts[both]).all(1).mean())
+    dd = float(np.abs(d2[both] - pd2[both]).max())
+    phase(43, "bkd", f"BkdForest of city scan 0 ({len(g[0])} points in {BKD_INSERTS} inserts of its "
+          f"buffer size {chunk}) in {insert_s:.2f} s: {blocks} blocks (levels {sorted(forest._levels)}, "
+          f"{len(forest._buffer)} points in the buffer), {removed} "
+          f"removed; find_closest of {len(q)} scan-1 points {find_ms:.2f} ms a call (one host read), "
+          f"K1 launches {launches} = {blocks} blocks x {calls} calls; against one plain nn_brute over "
+          f"the {len(alive)} alive points: found agree {agree}, the same point {same_pt}, d2 max diff "
+          f"{dd}; the removed point found at {d2[0]:.4f}")
+    check(agree == 1.0 and same_pt == 1.0 and dd <= 1e-2, "find_closest differs from nn_brute")
+    check(not (found[0] and d2[0] <= 1e-6), "the removed point is still found")
+    return launches
+
+
+def world_of_one_phase(reduced, odo_mats, device_points, links, pos0, theta0, n_scans):
+    """Phase 44 (a): a world of one NCCL rank.  ``icp_pair_sharded`` on
+    the first h468 match (phase 3's pair) and ``lum_run_sharded`` on phase
+    11's final graph must equal ``icp_pair`` and ``lum_run`` bit for bit
+    (a sum over one rank is the identity).  Returns K1's launches on the
+    sharded runs."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from tpu3dtk_torch.models import icp as icp_mod
+    from tpu3dtk_torch.models import lum_device
+    from tpu3dtk_torch.models.sequence import SequenceRegistration
+    from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+    from tpu3dtk_torch.parallel import icp_shard, lum_shard, mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    backend = "nccl" if CARD == "cuda" else "gloo"
+    tdist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        group = mesh.make_mesh().group
+        prep = SequenceRegistration(device=CARD)._prepare(reduced[:2])
+        mats = torch.as_tensor(np.stack(odo_mats[:2]).astype(np.float32), device=CARD)
+        model, mmask = icp_mod._window(prep["locals"], prep["masks"], mats, 0, 1, 1)
+        kw = dict(max_dist_match2=MAX_DIST**2, epsilon=1e-6, max_iterations=50)
+        k12_zero()
+        t0 = time.perf_counter()
+        r = icp_shard.icp_pair_sharded(group, model, mmask, prep["locals"][1], prep["masks"][1],
+                                       mats[1], **kw)
+        icp_s = time.perf_counter() - t0
+        icp_launches = nn_cuda.nn_brute_kernel.launches
+        u = icp_mod.icp_pair(model, mmask, prep["locals"][1], prep["masks"][1], mats[1], **kw)
+        check(icp_launches == r.iterations, f"K1 launches {icp_launches} != {r.iterations} iterations")
+        same_icp = bool(torch.equal(r.T, u.T)) and (r.iterations, r.error, r.n_pairs) == (
+            u.iterations, u.error, u.n_pairs)
+        args = (*device_points, links, np.ones(len(links), bool), pos0, theta0, n_scans,
+                MAX_DIST**2, 0.0)
+        nn_cuda.nn_brute_kernel.launches = 0
+        t0 = time.perf_counter()
+        sp, st, sit, sret = lum_shard.lum_run_sharded(group, *args, iterations=LUM_SHARD_ITERS)
+        lum_s = time.perf_counter() - t0
+        lum_launches = nn_cuda.nn_brute_kernel.launches
+        check(lum_launches == LUM_SHARD_ITERS * len(links),
+              f"K1 launches {lum_launches} != {LUM_SHARD_ITERS} iterations x {len(links)} links")
+        SLICE11["k2"] += nn_cell_list_cuda.cell_list_rows_kernel.launches
+        check(nn_cell_list_cuda.cell_list_rows_kernel.launches == 0, "K2 launched on phase 44 (a)")
+        up, ut, uit, uret = lum_device.lum_run(*args, iterations=LUM_SHARD_ITERS)
+        same_lum = np.array_equal(sp, up) and np.array_equal(st, ut) and (sit, sret) == (uit, uret)
+        phase(44, "multi-device", f"(a) a world of one {backend} rank: icp_pair_sharded on the first h468 match "
+              f"({r.iterations} iterations, {icp_s * 1e3:.1f} ms, K1 launches {icp_launches}) bit-identical "
+              f"to icp_pair: {same_icp}; lum_run_sharded on phase 11's final graph ({len(links)} links, "
+              f"{LUM_SHARD_ITERS} iterations, {lum_s:.2f} s, K1 launches {lum_launches}) bit-identical to "
+              f"lum_run: {same_lum}")
+        check(same_icp and same_lum, "the sharded ICP or LUM differs from the unsharded one in a world of one")
+    finally:
+        tdist.destroy_process_group()
+    return icp_launches + lum_launches
+
+
+# phase 44 (b): one process of ``torchslam --distributed``, which prints
+# its K1 and K2 launches with what they should equal as a JSON line
+DIST_CLI = r"""
+import json, sys
+from tpu3dtk_torch.cli import slam6d
+from tpu3dtk_torch.models import elch, graphslam as gs, graph_pipeline as gp
+from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
+from tpu3dtk_torch.utils.metrics import metrics
+pipes, results = [], []
+run = gp.GraphPipeline.run
+def run_kept(self, scans):
+    pipes.append(self)
+    out = run(self, scans)
+    results.extend(out)
+    return out
+gp.GraphPipeline.run = run_kept
+nn_cuda.nn_brute_kernel.launches = 0
+nn_cell_list_cuda.cell_list_rows_kernel.launches = 0
+rc = slam6d.main(sys.argv[1:])
+(p,) = pipes
+cnt = {k: int(m.total) for k, m in metrics.counters.items()}
+print("LAUNCHES " + json.dumps({
+    "k1": nn_cuda.nn_brute_kernel.launches,
+    "k2": nn_cell_list_cuda.cell_list_rows_kernel.launches,
+    "seq_iters": sum(r["iterations"] for r in results),
+    "loop_iters": cnt.get(elch.ELCH_ICP_ITERATIONS, 0),
+    "refresh": p._lum_corr_cache.n_refresh + p._elch_corr_cache.n_refresh,
+    "link_calls": cnt.get(gs.LUM_LINK_CALLS, 0),
+    "closures": len(p.closures),
+}), flush=True)
+sys.exit(rc)
+"""
+
+
+def distributed_cli_phase(tmp, scan_dir, idents):
+    """Phase 44 (b): ``torchslam --distributed`` as two processes on
+    gloo (both on the one card) with NPROC=2, on the first scans of phase
+    4's directory with ``-G 1``, against the one-process run: final
+    poses within 1e-2 cm (tests/test_distributed.py's bound), only
+    process 0 writing frames.  Each process reports its launches: K2
+    none, K1 its sequential and loop ICP iterations, cache refreshes and
+    its share of the link calls (phase 11's sum)."""
+    import socket
+
+    import numpy as np
+
+    from tpu3dtk_torch.cli import slam6d
+    from tpu3dtk_torch.io import frames as frames_io
+
+    flags = ["-s", "0", "-e", str(SHOW_SCANS - 1), "-r", "10", "-O", "1", "-d", str(MAX_DIST),
+             "-i", "50", "--epsICP", "1e-6", "-G", "1", "-I", "5", "-q", "--device", CARD]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(tmp, f"dist{r}") for r in range(2)]
+    procs = []
+    t0 = time.perf_counter()
+    for rank, out in enumerate(outs):
+        os.makedirs(out)
+        env = dict(os.environ, PYTHONPATH=HERE, JAX_COORDINATOR=f"localhost:{port}",
+                   NPROC="2", PROC_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DIST_CLI, scan_dir, "--distributed", *flags,
+             "--frames-out", out], env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    dist_s = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0, f"torchslam --distributed returned {p.returncode}: {log[-2000:]}")
+    check(all(f"process {r} of 2, backend gloo" in logs[r] for r in range(2)),
+          f"torchslam --distributed did not start on gloo: {logs[0][-500:]}")
+    counts = [json.loads(re.search(r"^LAUNCHES (.*)$", log, re.M).group(1)) for log in logs]
+    for r, c in enumerate(counts):
+        want = c["seq_iters"] + c["loop_iters"] + c["refresh"] + c["link_calls"]
+        check(c["k2"] == 0, f"process {r}: K2 launched {c['k2']} times")
+        check(c["k1"] == want,
+              f"process {r}: K1 launches {c['k1']} != sequential ICP iterations {c['seq_iters']} + "
+              f"loop-ICP iterations {c['loop_iters']} + cache refreshes {c['refresh']} + its link "
+              f"calls {c['link_calls']} = {want}")
+    SLICE11["k1_distributed_cli"] += sum(c["k1"] for c in counts)
+    SLICE11["k2"] += sum(c["k2"] for c in counts)
+    single = os.path.join(tmp, "single")
+    os.makedirs(single)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = slam6d.main([scan_dir, *flags, "--frames-out", single])
+    single_s = time.perf_counter() - t0
+    check(rc == 0, f"torchslam returned {rc}")
+    check(os.listdir(outs[1]) == [], "process 1 wrote frames")
+    dt = 0.0
+    for i in idents[:SHOW_SCANS]:
+        md, td = frames_io.read_frames(frames_io.frames_path(outs[0], i))
+        ms, ts = frames_io.read_frames(frames_io.frames_path(single, i))
+        check(np.array_equal(td, ts), f"scan {i}: the frames tags differ")
+        dt = max(dt, float(np.abs(md[-1][:3, 3] - ms[-1][:3, 3]).max()))
+    lum_frames = list(ts).count(int(frames_io.AlgoType.LUM))
+    phase(44, "multi-device", f"(b) torchslam --distributed, 2 processes on gloo sharing the card, "
+          f"{SHOW_SCANS} h468 scans with -G 1 -I 5: {dist_s:.2f} s (process start-up included) against "
+          f"{single_s:.2f} s in this process; {lum_frames} LUM frames a scan; largest final-pose "
+          f"difference {dt:.3g} cm (bound 1e-2); launches by process (K1 = sequential ICP "
+          f"iterations + loop-ICP iterations + cache refreshes + its link calls): "
+          + "; ".join(f"{r}: K1 {c['k1']} = {c['seq_iters']} + {c['loop_iters']} + {c['refresh']} + "
+                      f"{c['link_calls']}, K2 {c['k2']}, {c['closures']} closures"
+                      for r, c in enumerate(counts)))
+    check(lum_frames >= 1, "no LUM frame")
+    check(dt <= 1e-2, f"2 processes and 1 part by {dt} cm")
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
@@ -4845,6 +5276,8 @@ def main() -> int:
         condensed = condense_phase(tmp, scan_dir, out_dir, np.stack(true_mats), np.stack(odo_mats),
                                    ate_rmse(mats, true_mats))
         recon_phase(tmp, scan_dir, idents, true_mats)
+        show_phase(tmp, scan_dir, out_dir, idents)
+        distributed_cli_phase(tmp, scan_dir, idents)
     check(nframes == H468_SCANS - 1, f"{nframes} frames per scan, want {H468_SCANS - 1}")
     check(bool(np.isfinite(mats).all()), "non-finite poses")
     e = rel_trans_err(mats, true_mats)
@@ -4866,6 +5299,7 @@ def main() -> int:
     check(med <= GATE_MEDIAN_CM, f"median relative-pose error {med} cm > {GATE_MEDIAN_CM}")
     check(med < med_o, "registration is no better than odometry")
     seq_only = (ate_rmse(mats, true_mats), med)
+    viewer_lod_phase(reduced, mats)
 
     # ---- phase 5: the slice on the card against the plain path ------------
     runs = {}
@@ -4900,7 +5334,7 @@ def main() -> int:
         )
     )
 
-    graph_launches, ate11 = graph_phases(reduced, true_mats, odo_mats, seq_only)
+    graph_launches, ate11, multi_launches = graph_phases(reduced, true_mats, odo_mats, seq_only)
     quat_launches = quat_graph_phase(reduced, true_mats, odo_mats, ate11)
     matrix_launches = icp_matrix_phase(locals_, true_mats, odo_mats)
     dir_launches = dir_phases(locals_, true_mats, odo_mats)
@@ -4938,6 +5372,10 @@ def main() -> int:
         "launches_collision": k2["k1_launches_collision"],
         "launches_recon_people": 0,
         "launches_slice10": 0,
+        "launches_bkd": k2["k1_launches_bkd"],
+        "launches_multi_device": multi_launches,
+        "launches_viewer": SLICE11["k1_viewer"],
+        "launches_distributed_cli": SLICE11["k1_distributed_cli"],
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -4977,6 +5415,7 @@ def main() -> int:
         "launches_formats_e57": k2["launches_formats"]["e57"],
         "launches_slice9": 0,
         "launches_slice10": 0,
+        "launches_slice11": SLICE11["k2"],
         **({"launches_condensed": condensed["launches"]} if condensed["engine"] == "K2" else {}),
     }]}))
     print(smi_line, flush=True)

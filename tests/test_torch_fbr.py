@@ -6,8 +6,9 @@ Bounds: FAST-9 corners (threshold 20, non-maximum suppression) equal to
 ``cv2.FastFeatureDetector``'s, with equal scores; ORB and SIFT each match
 at least 40 keypoints correctly (within 2 px) across a 30° rotation and
 a 1.2x scale of a seeded image (OpenCV 5.0's ORB and SIFT at 1000
-features match 211 and 52 there, the port's 145 and 51; the port's ORB
-descriptors are its own, not OpenCV's); ``bf_knn_match``
+features match 211 and 52 there); the port's ORB descriptors on its own
+keypoints equal to ``cv2.ORB_create().compute``'s, up to 0.5% of the bits
+(the levels above 0 resize the image with other rounding); ``bf_knn_match``
 identical to a numpy brute force (indices and distances); RANSAC
 identical to the JAX package's on the same matches; ``register_fbr``
 with ORB on tests/test_fbr.py's scene, and with SIFT on that scene with
@@ -94,6 +95,36 @@ def test_matches_survive_rotation_and_scale(kind):
     p2 = k2.pt.numpy()[idx[:, 0].numpy()[good]]
     err = np.linalg.norm((p1 - c) @ A.T + c - p2, axis=1)
     assert (err <= 2.0).sum() >= 40, ((err <= 2.0).sum(), len(err))
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("turned", [False, True])
+def test_orb_descriptors_equal_opencv(seed, turned):
+    """OpenCV's learned test pattern: on level 0, where both take the image
+    as it is, every bit equals OpenCV's; on the resized levels a sample
+    that lands on a pixel resized with other rounding may flip a test."""
+    img = _scene_image(seed)
+    if turned:
+        img = _warp(img)[0]
+    kp, des = ft.orb_detect_and_compute(img, 1000, device="cpu")
+    octave = kp.octave.numpy()
+    cv_kps = [
+        cv2.KeyPoint(float(x), float(y), float(s), float(a), 0.0, int(o))
+        for (x, y), s, a, o in zip(
+            kp.pt.numpy(), kp.size.numpy(), kp.angle.numpy(), octave
+        )
+    ]
+    cv_kps, cv_des = cv2.ORB_create(1000).compute(img, cv_kps)
+    # OpenCV returns the keypoints grouped by level: pair them by position
+    row = {(k.pt, k.octave): i for i, k in enumerate(cv_kps)}
+    order = [
+        row[((float(x), float(y)), int(o))]
+        for (x, y), o in zip(kp.pt.numpy(), octave)
+    ]
+    assert len(order) == len(cv_kps) > 250
+    diff = np.unpackbits(des.numpy() ^ cv_des[order], axis=1).sum(1)
+    assert diff[octave == 0].sum() == 0
+    assert diff.sum() <= 0.005 * diff.size * 256, diff.sum()
 
 
 def _numpy_knn(q, t, norm):

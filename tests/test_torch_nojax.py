@@ -134,6 +134,18 @@ fp = interop.fbr_params_from({"detector": "sift", "panorama": {"width": 90, "hei
 assert fp.detector == "sift" and fp.panorama.width == 90
 lines_out = lines.hough_lines_p(np.eye(40, dtype=np.uint8) * 255, 1, np.pi / 180, 10, 10, 2)
 assert lines_out.shape[1] == 4 and len(lines_out) >= 1
+from tpu3dtk_torch.cli import show
+from tpu3dtk_torch.ops import bkd, octree, render, sphquad
+from tpu3dtk_torch.parallel import distributed, icp_shard, lum_shard, mesh as pmesh
+assert callable(render.render_points) and callable(render.lod_select) and callable(bkd.BkdForest)
+assert callable(octree.build_octree) and callable(sphquad.SphericalQuadtree)
+assert callable(icp_shard.icp_pair_sharded) and callable(lum_shard.lum_run_sharded)
+assert pmesh.default_points_mesh() is None and distributed.host_scan_range(5) == (0, 5)
+assert not distributed.initialize() and pmesh.rank_range(7, 2, 1) == (4, 7)
+a = show.build_parser().parse_args(["d", "--lod", "5000", "--color", "scan", "--device", "cpu"])
+assert (a.lod, a.color, a.device, a.orbit) == (5000, "scan", "cpu", 4)
+a = slam6d.build_parser().parse_args(["d", "--distributed"])
+assert a.distributed
 bad = [m for m in sys.modules if m == "tpu3dtk" or m.startswith("tpu3dtk.")
        or ((m.startswith("jax") or m.startswith("cv2")) and sys.modules[m] is not None)]
 assert not bad, bad
@@ -198,6 +210,15 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
         graphslam_variants.do_graph_slam_quat(two, np.array([[0, 1]]), graphslam.LumParams())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         normals.estimate_normals_knn(pts, np.ones(4, bool), np.zeros(3, np.float32))
+    from tpu3dtk_torch.cli import show
+    from tpu3dtk_torch.ops import bkd, render
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render.render_points(pts, np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bkd.BkdForest(pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        show.main([str(tmp_path), "-o", str(tmp_path / "out")])
     C = np.tile(np.eye(6), (1, 1, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pgsolve.solve_block_cg(np.array([[0, 1]]), C, np.ones((1, 6)), 1)

@@ -112,6 +112,40 @@ def test_run_single_matches_run():
         assert len(x.frames) == len(y.frames)
 
 
+@pytest.mark.parametrize("n_meta", [1, 2, 3])
+def test_max_num_metascans_matches_jax_run_single(n_meta):
+    """A metascan of the last n scans: match i sees scans [max(0, i - n),
+    i).  The port's ``run`` (its device loop) and ``run_single`` against
+    the JAX package's per-match loop (its device loop starts every window
+    at scan 0, ROADMAP queue 3), at the bounds above."""
+    locs, _true, odo = synth_loop(n_scans=8, n_pts=1500, seed=5)
+    jscans = []
+    for k, (loc, To) in enumerate(zip(locs, odo)):
+        s = TPUScan.from_points(loc, f"{k:03d}", To)
+        s.set_reduction(25.0, 1)
+        s.reduced_local()
+        jscans.append(s)
+    runs = [
+        interop.scans_from_numpy([_as_numpy(s) for s in jscans], PARAMS)
+        for _ in range(2)
+    ]
+    jreg = JSeq(params=JIcpParams(**PARAMS), metascan=True,
+                max_num_metascans=n_meta, mesh=None)
+    jres = [jreg.run_single(jscans, i) for i in range(1, len(jscans))]
+    for single, (tscans, tparams) in zip((False, True), runs):
+        treg = TSeq(params=tparams, metascan=True, max_num_metascans=n_meta,
+                    device="cpu")
+        if single:
+            tres = [treg.run_single(tscans, i) for i in range(1, len(tscans))]
+        else:
+            tres = treg.run(tscans)
+        for jr, tr in zip(jres, tres):
+            assert abs(tr["iterations"] - jr["iterations"]) <= 3
+        for j, t in zip(jscans, tscans):
+            _assert_poses_close(t.transMat, j.transMat)
+            assert [f[1] for f in t.frames] == [f[1] for f in j.frames]
+
+
 @pytest.fixture(scope="module")
 def uos_dir(tmp_path_factory):
     locs, _true, odo = synth_loop(n_scans=4, n_pts=1500, seed=3)
@@ -195,17 +229,18 @@ def test_frames_text_identical_for_equal_matrices(tmp_path):
     "flag,item",
     [
         (["-L", "6"], "0..4"), (["-G", "-1"], "0..4"), (["-L", "-2"], "0..4"),
-        (["-G", "7"], "0..4"), (["--distributed"], "slice E"),
+        (["-G", "7"], "0..4"), (["--distributed", "-a", "11"], "1..10"),
         (["-a", "0"], "1..10"), (["-a", "11"], "1..10"),
         (["-a", "-3"], "1..10"),
     ],
 )
 def test_cli_refuses_unported_flags(flag, item, capsys, tmp_path):
-    """Only --distributed is left unported; --cache-mb, --saveOct and
-    --loadOct run (tests/test_torch_streaming.py, test_torch_boctree.py)."""
+    """Every flag of tpuslam is ported (--distributed:
+    tests/test_torch_distributed.py); values slam6D does not define stop
+    the run, with --distributed too."""
     from tpu3dtk_torch.cli import slam6d as tcli
 
-    assert [f for f, _set, _item in tcli._NOT_PORTED] == ["--distributed"]
+    assert not hasattr(tcli, "_NOT_PORTED")
 
     with pytest.raises(SystemExit) as e:
         tcli.main([str(tmp_path), *flag])

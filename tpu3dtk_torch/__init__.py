@@ -18,8 +18,10 @@ kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
   torch version and a CUDA kernel: K1 ``nn_brute``, K2 ``nn_cell_list``),
   k-NN, the four normal estimators, range/box/segment searches, panorama
   projections (host numpy), surface nets (on the field's device), the
-  probabilistic Hough line transform (host numpy) and the FAST / ORB /
-  SIFT detectors with a brute-force matcher (torch)
+  probabilistic Hough line transform (host numpy), the FAST / ORB /
+  SIFT detectors with a brute-force matcher (torch), the offscreen
+  renderer (a z-buffer splat in torch, the octree LOD cut), the linear
+  octree and spherical quadtree (host numpy), the Bkd forest (K1 a block)
 - ``models`` minimizers, ICP (while-style loop, the chained cell-list
   engine, loop-closure windows), sequential registration, LUM graph
   relaxation (on the device and the host path), the correspondence
@@ -31,12 +33,16 @@ kernel under ``csrc/`` (see ``ops/nn_cuda.py``, ``ops/nn_cell_list_cuda.py``).
   removal, collision detection, GPS and curve fusion, thermal mapping and
   camera calibration, cylinders, building models, occupancy grids and
   floor plans, feature-based registration
+- ``parallel`` ``torch.distributed`` process groups: the ICP target and
+  the LUM links split over the ranks, their sums taken by ``all_reduce``,
+  multi-process launch and per-process scan ingest
 - ``utils``  named-phase metrics, key-value config files and scan ranges
 - ``cli``    torchslam (the slam6D-style command; sequential ICP, ``-n`` /
   ``-C`` graph LUM, ``-L``/``-G`` GraphPipeline, ``--cache-mb``,
   ``--saveOct``/``--loadOct``; every scan format), torchicpfixpoint,
   torchplanes, torchplanereg, torchnormals, torchscan_red, torchconvert,
-  torchexport, torchveloslam, torchrecon
+  torchexport, torchveloslam, torchrecon, torchshow (the offscreen
+  viewer); ``torchslam --distributed`` runs on several processes
 
 This package imports neither ``jax`` nor ``tpu3dtk``.
 """

@@ -26,7 +26,8 @@ The JAX package has a second, segmented loop that runs matching and
 loop detection in on-device segments to pay one device fetch per closure
 instead of one per match; an eager PyTorch ICP loop reads the host once
 per iteration anyway, so the port has the per-match loop only, and no
-mesh fields.
+seq_mesh.  Its lum_mesh is ``lum_group``, which splits the ``-G 1``
+relaxation's links over the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -74,6 +75,10 @@ class GraphPipeline:
     corr_tol_t: float = 0.5
     corr_tol_r: float = 2e-3
     device: torch.device | str | None = None  # None: the package default
+    # torch.distributed process group over which the Euler LUM's links
+    # are split (the JAX package's lum_mesh; None: unsplit); the
+    # sequential matching runs whole on every rank
+    lum_group: object | None = None
 
     def _check_algos(self) -> None:
         if self.slam_algo not in (0, 1, *GRAPHSLAM_VARIANTS):
@@ -100,6 +105,7 @@ class GraphPipeline:
             device_points=self._device_points,
             corr_cache=self._lum_corr_cache,
             device=self._device,
+            group=self.lum_group,
         )
 
     def _prepare_statics(self, scans) -> SequenceRegistration:

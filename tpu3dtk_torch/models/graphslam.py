@@ -286,6 +286,10 @@ def link_covariances_chained(points_g, masks, links, max_dist2, spec):
     """
     from ..ops import nn_cell_list as ncl
 
+    if len(links) == 0:  # a rank's empty share of the links
+        z = np.zeros((0, 6, 6), np.float32)
+        return z, z[:, 0], z[:, 0, 0], False
+
     perm = tuple(spec.get("perm", (0, 1, 2)))
     max_dist = float(np.sqrt(max_dist2))
     md2 = float(np.float32(max_dist2))
@@ -399,6 +403,9 @@ class LumParams:
     # within tolerance; covariance stats stay exact at current poses
     corr_cache: object | None = None
     device: torch.device | str | None = None  # None: the package default
+    # torch.distributed process group over which the links are split (the
+    # JAX package's mesh; parallel.lum_shard): None runs unsplit
+    group: object | None = None
 
 
 def _resolve_device(device) -> torch.device:
@@ -510,12 +517,16 @@ def _do_graph_slam_device(
         cache is not None
         and int(params.iterations) == 1
         and cache.N == int(locals_t.shape[1])
+        and _world(params.group) == 1
     ):
         # cached path for the PER-CLOSURE 1-iteration relax only.  The
         # JAX package measured (h468) that extending it to the
         # multi-iteration final relax degraded ATE 18.3 -> 28.4 cm:
         # within-relax pairing reuse interferes with LUM convergence,
-        # across-closure reuse does not.
+        # across-closure reuse does not.  A group of several ranks
+        # relaxes uncached (every link's NN, split over the ranks): the
+        # cache's slots would move between ranks whenever it grows, and
+        # a rank would read pairings it never refreshed.
         mats_np = np.asarray(math3d.euler_to_matrix4(pos0, theta0, xp=np))
         prepared = cache.prepare(links, mats_np)
         pos, theta, ret = lum_device.lum_step_cached(
@@ -530,8 +541,17 @@ def _do_graph_slam_device(
         n_real, params.max_dist_match2, params.epsilon,
         iterations=int(params.iterations),
         on_iteration=lambda pos, theta: _record_lum_iteration(scans, pos, theta),
+        group=params.group,
     )
     return ret
+
+
+def _world(group) -> int:
+    if group is None:
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
 
 
 def _link_spec(clouds, links, max_dist, headroom):
@@ -548,13 +568,20 @@ def _do_graph_slam_host(
     scans: list[Scan], links: np.ndarray, params: LumParams
 ) -> float:
     """Host-orchestrated LUM: per iteration the link covariances on the
-    device and the f64 solve and pose update on the host."""
+    device and the f64 solve and pose update on the host.  With
+    ``params.group`` each rank computes the covariances of its contiguous
+    share of the links, on the same engine, and ``parallel.mesh.sum_rows``
+    sums them over the ranks (the JAX package's mesh route)."""
+    from ..parallel.mesh import group_range, sum_rows
+
     dev = _resolve_device(params.device)
     cap = _round_up(max(len(s.reduced_local()) for s in scans), _PAD)
     locals_pad, masks = _pad_scan_points(scans, cap)
     locals_t = torch.as_tensor(locals_pad, device=dev)
     masks_t = torch.as_tensor(masks, device=dev)
     max_dist = float(np.sqrt(params.max_dist_match2))
+    lo, hi = group_range(len(links), params.group)
+    share = np.asarray(links, np.int64).reshape(-1, 2)[lo:hi]
 
     chain_spec = None
     if cap >= params.chained_min:
@@ -576,7 +603,7 @@ def _do_graph_slam_host(
         with metrics.time(LUM_COV):
             if chain_spec is not None:
                 C, CD, _m, guard = link_covariances_chained(
-                    points_g, masks_t, links, params.max_dist_match2,
+                    points_g, masks_t, share, params.max_dist_match2,
                     chain_spec,
                 )
                 if guard:
@@ -589,15 +616,16 @@ def _do_graph_slam_host(
                     chain_spec = _link_spec(clouds, links, max_dist, 4.0)
                     if chain_spec is not None:
                         C, CD, _m, guard = link_covariances_chained(
-                            points_g, masks_t, links,
+                            points_g, masks_t, share,
                             params.max_dist_match2, chain_spec,
                         )
             if chain_spec is None:
                 C, CD, _m = link_covariances(
-                    points_g, masks_t, links, params.max_dist_match2
+                    points_g, masks_t, share, params.max_dist_match2
                 )
-                metrics.count(LUM_LINK_CALLS, len(links))
+                metrics.count(LUM_LINK_CALLS, len(share))
                 C, CD = C.cpu().numpy(), CD.cpu().numpy()
+            C, CD = sum_rows(params.group, len(links), np.arange(lo, hi), C, CD)
         with metrics.time(LUM_SOLVE):
             X = _solve_GX_B(len(scans), links, C, CD, params.dense_solver_max_scans)
         pos = np.stack([s.rPos for s in scans[1:]])

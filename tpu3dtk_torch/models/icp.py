@@ -114,6 +114,7 @@ def icp_pair(
     seed: int = 0,
     pairing: str = "closest_point",
     target_normals_local=None,
+    group=None,
 ) -> IcpResult:
     """Match one target scan against fixed model points.
 
@@ -133,6 +134,13 @@ def icp_pair(
     local frame, carried to the global frame by the current pose each
     iteration.  ``lumeuler`` / ``lumquat`` are given the current pose
     (ref icp6D.cc:242-245).
+
+    ``group``: a ``torch.distributed`` process group whose ranks each
+    hold an equal contiguous slice of one target (in rank order, with
+    its mask and normals; ``parallel.icp_shard``): the pair statistics
+    are summed over the ranks (``minimizers.pair_stats``), so every rank
+    takes the same steps and ends with the same pose.  A subsampling
+    draw covers the whole target and each rank keeps its slice.
     """
     if pairing not in ("closest_point", "closest_plane", "along_normal"):
         raise ValueError(f"unknown pairing {pairing!r}")
@@ -149,6 +157,12 @@ def icp_pair(
     md2 = float(np.float32(max_dist_match2))
     eye4 = torch.eye(4, dtype=torch.float32, device=dev)
     gen = torch.Generator().manual_seed(int(seed)) if subsample > 1 else None
+    rows = tmask.shape[0]
+    draw_lo, draw_n = 0, rows
+    if group is not None:
+        import torch.distributed as dist
+
+        draw_lo, draw_n = dist.get_rank(group) * rows, dist.get_world_size(group) * rows
 
     ret = prev = prev2 = 0.0
     npairs = 0.0
@@ -157,7 +171,7 @@ def icp_pair(
     while not done and it < max_iterations:
         it_mask = tmask
         if gen is not None:
-            keep = torch.randint(0, subsample, tmask.shape, generator=gen) == 0
+            keep = torch.randint(0, subsample, (draw_n,), generator=gen)[draw_lo : draw_lo + rows] == 0
             it_mask = tmask & keep.to(dev)
         tgt_global = math3d.transform3(T, target_local)
         normals_g = None
@@ -165,13 +179,13 @@ def icp_pair(
             normals_g = math3d.transform3normal(T, target_normals_local).to(torch.float32)
         m_pts, found = _find_pairs(bm, tgt_global, it_mask, md2, pairing, normals_g)
         if minimizer == "napx":
-            stats = mz.napx_stats(m_pts, tgt_global, normals_g, found)
+            stats = mz.napx_stats(m_pts, tgt_global, normals_g, found, group)
             align, err = align_fn(stats)
         elif minimizer in mz.POSE_MINIMIZERS:
-            stats = mz.pair_stats(m_pts, tgt_global, found)
+            stats = mz.pair_stats(m_pts, tgt_global, found, group)
             align, err = align_fn(stats, T)
         else:
-            stats = mz.pair_stats(m_pts, tgt_global, found)
+            stats = mz.pair_stats(m_pts, tgt_global, found, group)
             align, err = align_fn(stats)
         # the one device->host read of the iteration
         n, err_v, tnorm, rnorm = torch.stack([
@@ -432,7 +446,6 @@ def register_sequence_device(
     max_dist_match2,
     epsilon,
     *,
-    metascan: bool = False,
     extrapolate: bool = True,
     window_cap: int = 1,
     max_iterations: int = 50,
@@ -446,6 +459,10 @@ def register_sequence_device(
     extrapolation, a full ICP match against the resident model window,
     pose update.  The poses stay on the device between matches.
     ``normals_all``: resident [S, N, 3] local normals (see icp_pair_seq).
+    Match i's model is scans [max(0, i - window_cap), i): the previous
+    scan for 1, the metascan of the last n scans for n, of all earlier
+    scans for S (the JAX package's per-match windows; its device loop
+    starts every metascan window at scan 0).
 
     Returns (mats [S,4,4] f32 device tensor, errs [S] f32, iters [S]
     int32, npairs [S] f32 numpy); entry 0 keeps its pose.
@@ -463,9 +480,8 @@ def register_sequence_device(
             T0 = delta @ mats[i]
         else:
             T0 = mats[i]
-        lo = 0 if metascan else i - 1
         res = icp_pair_seq(
-            locals_all, masks_all, mats, lo, i, i, T0,
+            locals_all, masks_all, mats, max(0, i - window_cap), i, i, T0,
             max_dist_match2, epsilon, i,
             max_iterations=max_iterations, minimizer=minimizer,
             subsample=subsample, pairing=pairing, window_cap=window_cap,

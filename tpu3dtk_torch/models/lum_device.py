@@ -27,8 +27,10 @@ history buffer replayed on the host afterwards (a traced loop cannot
 call the host); a Python loop reports each iteration as it goes
 (``on_iteration``), with the same ``.frames`` records.  Its solve is
 f32; this card has native f64, so pose state and solve are f64 and the
-Jacobi scaling stays.  Not ported: the per-scan hashed local grids
-(``build_local_grids``, the ``local_grids`` branch) and the mesh axis.
+Jacobi scaling stays.  The mesh axis is a process group (``group``):
+the link statistics are split over its ranks and summed, where the JAX
+package sums the G/B blocks.  Not ported: the per-scan hashed local
+grids (``build_local_grids``, the ``local_grids`` branch).
 
 S (scan slots) may exceed the real scan count ``n_scans``: slots
 beyond it get identity blocks in the system and no correction, so
@@ -49,6 +51,7 @@ import torch
 
 from ..core import math3d
 from ..ops import nn as nn_ops
+from ..parallel.mesh import group_range, sum_rows
 from ..utils.metrics import metrics
 from . import graphslam as gs
 from . import pgsolve
@@ -56,25 +59,25 @@ from . import pgsolve
 __all__ = ["CorrCache", "link_cov_cached", "lum_run", "lum_step_cached"]
 
 
-def _scatter_rows(L, rows, values):
-    """[L, ...] zeros with ``values`` at ``rows``."""
-    out = torch.zeros((L,) + values.shape[1:], dtype=values.dtype, device=values.device)
-    out[rows] = values
-    return out
-
-
-def _link_stats_all(points_g, masks, links, link_mask, max_dist2):
+def _link_stats_all(points_g, masks, links, link_mask, max_dist2, group=None):
     """(C [L,6,6], CD [L,6], m [L]) for all link slots: global-frame
     brute NN over ``points_g`` for the valid slots, zeros for the rest.
-    links [L,2] and link_mask [L] are host arrays."""
-    rows = np.flatnonzero(np.asarray(link_mask))
+    links [L,2] and link_mask [L] are host arrays.
+
+    ``group``: the link slots split over a process group: each rank
+    computes the valid slots of its contiguous share
+    (``parallel.mesh.group_range``) and ``parallel.mesh.sum_rows`` sums
+    the rows over the ranks, every slot nonzero on one rank only, so each
+    rank ends with the statistics the unsplit call computes."""
+    link_mask = np.asarray(link_mask)
+    L = len(link_mask)
+    lo, hi = group_range(L, group)
+    rows = lo + np.flatnonzero(link_mask[lo:hi])
     C, CD, m = gs.link_covariances(
         points_g, masks, np.asarray(links)[rows], max_dist2
     )
     metrics.count(gs.LUM_LINK_CALLS, len(rows))
-    rows_t = torch.as_tensor(rows, device=points_g.device)
-    L = len(link_mask)
-    return _scatter_rows(L, rows_t, C), _scatter_rows(L, rows_t, CD), _scatter_rows(L, rows_t, m)
+    return sum_rows(group, L, rows, C, CD, m)
 
 
 # metrics counter: iterations of the device block-CG solves
@@ -239,13 +242,20 @@ def lum_run(
     *,
     iterations: int,
     on_iteration=None,
+    group=None,
 ):
     """Run the full LUM relaxation with points and poses on the device.
 
     ``on_iteration(pos, theta)`` is called after every executed
     iteration with the new pose state as [S,3] f64 host arrays (the
     caller writes that iteration's frames).  Returns (pos [S,3], theta
-    [S,3] f64 host arrays, n_iters, final_ret)."""
+    [S,3] f64 host arrays, n_iters, final_ret).
+
+    ``group``: a ``torch.distributed`` process group over which the link
+    slots are split (the JAX package's ``axis_name``): each rank computes
+    its share of the link statistics, one ``all_reduce`` an iteration
+    sums them, and every rank solves the same system, so all ranks take
+    the same poses, equal to the unsplit run's."""
     pos, theta = _pose_state(pos0, theta0, locals_pts.device)
     pos_h, theta_h = pos.cpu().numpy(), theta.cpu().numpy()
     ret = float("inf")
@@ -254,7 +264,7 @@ def lum_run(
         with metrics.time(gs.LUM_COV):
             mats = math3d.euler_to_matrix4(pos, theta)
             points_g = gs.global_points(locals_pts, mats)
-            C, CD, _m = _link_stats_all(points_g, masks, links, link_mask, max_dist2)
+            C, CD, _m = _link_stats_all(points_g, masks, links, link_mask, max_dist2, group)
         with metrics.time(gs.LUM_SOLVE):
             pos, theta, ret_d = _solve_and_update(
                 links, link_mask, C, CD, pos, theta, n_scans

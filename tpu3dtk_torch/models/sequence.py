@@ -19,7 +19,10 @@ The JAX package gates the chained engine on a TPU backend; the port
 gates on the sizes alone, so the CPU tests run it through the plain
 version of K2.  Normals-based pairing, subsampling and the minimizers
 that need normals or the pose (napx, lumeuler, lumquat) stay on brute.
-The multi-device mesh and the hashed grid are not ported.
+The JAX package's mesh is not a field here: its drivers run the sequence
+unsplit under ``--distributed``, and a process drives one card, so
+"auto" is always a world of one; ``parallel.icp_shard`` splits one match
+over a process group.  The hashed grid is not ported.
 """
 
 from __future__ import annotations
@@ -74,6 +77,9 @@ class SequenceRegistration:
 
     params: icp_mod.IcpParams = dataclasses.field(default_factory=icp_mod.IcpParams)
     metascan: bool = False  # ref --metascan
+    # keep only the last n scans in the metascan model (0: all of them);
+    # the window of match i is scans [max(0, i - n), i)
+    max_num_metascans: int = 0
     extrapolate_odometry: bool = True  # ref -e / eP flag (default on)
     device: torch.device | str | None = None  # None: the package default
     # chained cell-list ICP (K2): used when the model window reaches this
@@ -96,7 +102,7 @@ class SequenceRegistration:
         if not scans:
             return []
         prep = self._prepare(scans)
-        win_max = len(scans) if self.metascan else 1
+        win_max = self._win_max(len(scans))
         if prep["chain_spec"] is None:
             return self._run_device(scans, prep, win_max)
         return [self.run_single(scans, i) for i in range(1, len(scans))]
@@ -115,7 +121,6 @@ class SequenceRegistration:
             mats, errs, iters, npairs = icp_mod.register_sequence_device(
                 prep["locals"], prep["masks"], mats_org, mats0,
                 self.params.max_dist_match2, self.params.epsilon,
-                metascan=self.metascan,
                 extrapolate=self.extrapolate_odometry,
                 window_cap=win_max,
                 max_iterations=self.params.max_iterations,
@@ -136,6 +141,22 @@ class SequenceRegistration:
             })
         return infos
 
+    def _win_max(self, n_scans: int) -> int:
+        """The largest model window (in scans) any match of the run sees."""
+        if not self.metascan:
+            return 1
+        return self.max_num_metascans or n_scans
+
+    def _window_of(self, i: int, n_scans: int) -> tuple[int, int]:
+        """(lo, window_cap) of match i: the previous scan, or the
+        metascan of scans [max(0, i - n), i) with n = max_num_metascans
+        (all earlier scans when it is 0)."""
+        if not self.metascan:
+            return i - 1, 1
+        if self.max_num_metascans > 0:
+            return max(0, i - self.max_num_metascans), self.max_num_metascans
+        return 0, n_scans
+
     def _need_normals(self) -> bool:
         return self.params.pairing != "closest_point" or self.params.minimizer == "napx"
 
@@ -154,6 +175,7 @@ class SequenceRegistration:
             self.params,
             str(dev),
             self.metascan,
+            self.max_num_metascans,
             self.chained_min,
         )
         prep = getattr(self, "_prep", None)
@@ -190,7 +212,7 @@ class SequenceRegistration:
         a minimizer that takes the pose, or no spec that fits and beats
         brute).  The JAX package's gate lets napx through to an engine
         without normals, where it fails; here napx stays on brute."""
-        win_max = len(scans) if self.metascan else 1
+        win_max = self._win_max(len(scans))
         if not (
             self.params.pairing == "closest_point"
             and self.params.subsample == 1
@@ -237,7 +259,7 @@ class SequenceRegistration:
             # deltaMat = prev.transMat @ inv(prev.transMatOrg)
             delta = prev.transMat @ np.asarray(math3d.m4inv(prev.transMatOrg))
             cur.transform(delta, AlgoType.INVALID, record=False)
-        lo, window_cap = (0, len(scans)) if self.metascan else (i - 1, 1)
+        lo, window_cap = self._window_of(i, len(scans))
         dev = prep["device"]
         mats = torch.as_tensor(
             np.stack([s.transMat for s in scans]), dtype=torch.float32,

@@ -12,12 +12,9 @@ this is torch on the image's device.
   from a 31-pixel border, the best 2n of a level by FAST score, then the
   best n by the Harris response (7x7 block, k = 0.04), the intensity
   centroid's orientation over a disc of radius 15, and steered BRIEF:
-  256 tests on the level image blurred 7x7 at sigma 2.  OpenCV's learned
-  test pattern is a table inside its library; the port's ``ORB_PATTERN``
-  was drawn once (numpy ``default_rng(20260)``: points N(0, (31/5)²)
-  rounded, kept in a disc of radius 13, the two points of a test apart)
-  and is stored here, so the descriptors are the port's own, not
-  OpenCV's.
+  256 tests on the level image blurred 7x7 at sigma 2, with OpenCV's
+  learned test pattern (``ORB_PATTERN``, a copy of its table, under its
+  Apache-2.0 notice).
 - :func:`sift_detect_and_compute`: Lowe's SIFT as OpenCV lays it out:
   the image doubled, Gaussian octaves of 3 scales (sigma 1.6), DoG
   extrema refined by up to five quadratic steps, the contrast (0.04)
@@ -45,37 +42,48 @@ __all__ = [
     "sift_detect_and_compute",
 ]
 
-# 256 BRIEF tests (x1, y1, x2, y2), int8 (see the module docstring)
+# OpenCV's learned test pattern, ``bit_pattern_31_`` of
+# modules/features2d/src/orb.cpp: 256 tests as int (x1, y1, x2, y2), stored
+# here as int8 (the values lie in [-13, 12]).  OpenCV reads it as 512 points,
+# two a test, each rotated by the keypoint's angle and rounded.
+# Copyright (C) 2000-2022, Intel Corporation, Willow Garage Inc. and the
+# OpenCV contributors.  Licensed under the Apache License, Version 2.0 (the
+# "License"); you may not use this table except in compliance with the
+# License.  You may obtain a copy of the License at
+# http://www.apache.org/licenses/LICENSE-2.0.  Unless required by applicable
+# law or agreed to in writing, software distributed under the License is
+# distributed on an "AS IS" BASIS, WITHOUT WARRANTIES OR CONDITIONS OF ANY
+# KIND, either express or implied.
 ORB_PATTERN = np.frombuffer(bytes.fromhex(
-    "00fef9fbfffdf50302fbff04fe0408fd04010101fd030200fc07fcf90501f6fe0103fc03"
-    "0a01fc0cff04fcf5010408000802fa07f5fc0afb05fe070902f7fa07040402faf60509fc"
-    "0005ff04fc0905f505fe0c00010601fb020cffff07f705050b05f9fff9fffefafc010909"
-    "030406fbfafa02fc04fc0702ff00fbfefefafdfdf404fdfdf7ff05fefc02050201010703"
-    "060b04fc0705000108fe05fa01fbf6fe00050001f8f901fafcf80109ff000203f8fcfb03"
-    "f90401fe09fdfa040100fd0708fcff0607fe080802fdf800f70003fcf9030201fffefd08"
-    "00010c0201fefd09fe07fe0306f9fefc06fd07fefd0005fafcfa0001fefaf6fdf8f70005"
-    "0a0603070504fb08000301ff05fb00020bfc03f6fd0207fd03fffcf4fe020af8fefef701"
-    "f9ff01fd020503050aff0501fe03faf802000500fef8f7fafffc0104fb02000101fdfdfd"
-    "01fb05ff01fcfe01f8fcfb0af7ff0407fcfd03f9fb0101fe030006fe01ff06fbfe08fefd"
-    "06f90404fcfc0bfbff0202f9fc03fafdf50103fafbf7f9fb010106f902010304060804fd"
-    "00ff08f9f8ff0703fefbfb06fe0803fb0501f90900ff00fb010af9fefafcfbfa010a020a"
-    "02fcf701f901fdf70b03fdfafbf6030701f806fbfafff9fdfc00ff030afcf8fa02fd06f8"
-    "08f903f806030501010402ff01fd04fc04fd0004fdfff803fc06f900010a06f701020a02"
-    "fafffb0000030509fcf6f7ff030b08030afbfcf600fdf6fff8fa07fb0afb00040501f604"
-    "030308fef6000504020002ff0608fdfe0406fafdfefb0cff05f804020302fffe0203fbfc"
-    "fd0c03000c050201030b06fb01fc0308fefcff0107fd0403000a050c00f7fb0806fb0004"
-    "f40002020302ff09ff06fc03fcf708fb0107040707f8fefe05010101fffcf906030c0902"
-    "fd08fb070500fd01fbfd03fff4040002f9fb08feff01010800fd0101fcfbfefffd010afc"
-    "060afafbfefd0704feff04080809fdfffdf904f40606fc07fefdf8fefb00f7fa07f6ff01"
-    "02fe0206fe04f7050301fff70303010bfef4fefafe0202fb050601f60106fd03fb02ff06"
-    "000506fbff0102f406030400f707f701fa00fdfcff05f80100fc08f9fafafffcf6fd02fe"
-    "0807010304fef800f9000403fc05fe0c02fc0304000bfcfbf905fe02fd05f8fd03010a01"
-    "07fd0907fa00f8fff7010307070908080bfb0109fafaf80000fa0bfcfbf801fb02fff5fb"
-    "050201000603fd0807f803fefff9fdfa0208ff020bfdf9fb0000fd080bfafd0afe04020c"
-    "f6fd05fffe040008f90200f6fffdf903fd0afcf90105fe0002fd0103f5fe03030805f902"
-    "00040806ffff0009fbf509010304ff00000903fb01faff02fe050002fd0703fe0403fff6"
-    "fcf90505fef708080800fbf7fbfd0c0200fafdf601fc010b0001fffaf401f80000090407"
-    "fe03060604050909f709fe0c05030701"), dtype=np.int8).reshape(256, 4)
+    "08fd0905040207f4f509f80207f40cf302f3020c01f90106fef6fefcf3f3f5f8f3fdf4f7"
+    "0a040b09f3f8f8f7f507f70c07070c06fcfbfd00f302f4fdf700f9050cfa0cfffd06fe0c"
+    "faf3fcf80bf30cf80407050105fd0afd03f9060cf8f9fafefe0bfff6f30cf80af903fbfd"
+    "fc02fd07f6f4fa0b05f406f905fa07ff010004fb090b0bf30407040c02ff0404fcf4fe07"
+    "f8fbf9f6040b090c00f801f3f3fef802fdfefe03fa09fcf7080c0a070009010307fb0bf6"
+    "f3faf5000a070c01fafdfa0c0af70cfcf308f8f4f300f8fc0303070805070af9ff0701f4"
+    "03f6050602fc03f6f300f305f3f9f40cf303f508f90cfc0706f60c08f7fff9fafefb000c"
+    "f405f90503f608f3f9f9fc05fdfefff9020905f5f5f3fbf3ff0600ff05fd0502fcf3fc0c"
+    "f7faf706f4f6f8fc0a020cfd070c0c0cf9f3fa05fc09fd0407ff0c02f906fb01f30bf405"
+    "fd07fefa07f80cf9f3f9f5f401fd0c0c02fa0300fc03fef3fff30109070108fa01ff030c"
+    "09010c06fff7ff03f3f3f60507070a0c0cfb0c090603070b05f3060a02f40203030804fa"
+    "02060cf309f40a03f804f909f50cfcfa010c02f806f707fc020303fe06030b0003fd08f8"
+    "07080903f5fbfafcf60bfb0afbf8fd0cf605f70008ff0cfa04fa06f5f60cf80704fe0607"
+    "fe00fe0cfbf8fb0207fa0a0cf7f3f8f8fbf3fbfe08f809f3f7f5f70001f801fe07fc0901"
+    "fe01fffc0bfa0cf5f4f7fa040307070c05050a0800fc0208f70cfbf30007020cff020107"
+    "050b07f7030506f8f3fcf809fb09fdfdfcf9fdf406050800f906fa0cf306fbfe01f6030a"
+    "040108fcfefe02f302f40c0cfef300fa04010903faf6fdfbfdf3ff0107050cf504fe05f9"
+    "f309f7fb0701080607f80706f9fcf901f80bf9f8f306f4f8020403090afb0c03fafbfa07"
+    "08fd09f802f40208f5fef603f4f3f9f7f500f6fb05fd0b08fef3ff0cfff80009f3f5f4fb"
+    "f6fef60bfd09fef302fd0302f7f3fc00fc06fdf6fc0cfef9faf5fc0906fd060bf30bfb05"
+    "0b0b0c0607fb0cfeff0c0007fcf8fdfef901fa07f3f4f8f3f9fefaf8f805faf7fbfffc05"
+    "f307f80a010505f301000af3090c0aff05f80af7ff0b01f3f7fdfa02fff6010cf301f8f6"
+    "08f50afa02f303fa07f30cf7f6f6fbf9f6f8f8f304fa0805030c08f3fc02fdfd05f30af4"
+    "04f305fff709fc03000303f7f401fa01030204f8f6f6f60908f30c0cf8f4fafb02020307"
+    "0a060bf8060808f4f90afa05fdf7fd09fff3ff05fdf9fd04f8fef80304020c0c02fb030b"
+    "06f70bf303ff070c0bff0c04fd00fd0604f5040c02fc0201f6faf801f307f501f30cf5f3"
+    "06000bf300ff0104f303f7fef708fafdf3faf8fe05f7080a020703f7fffaffff09050bfe"
+    "0bfd0cf803000305ff04000a03fa0405f300f60505080c0b080909fa07fc08f4f604f609"
+    "07030c0409f90afe07000cfefffa00f5"), dtype=np.int8).reshape(256, 4)
 
 # the FAST circle of radius 3, (dx, dy), in order around it
 _RING = (
