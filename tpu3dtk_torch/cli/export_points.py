@@ -52,7 +52,7 @@ def main(argv=None) -> int:
     from ..io import frames as frames_io
     from ..io.scandir import PointFilter, read_scan_dir
     from ..io.writer import write_pose, write_uos
-    from ..utils.metrics import REDUCTION, SCAN_LOAD, metrics
+    from ..utils.metrics import SCAN_LOAD, metrics
 
     device = torch.device(args.device) if args.device else default_device()
     pf = PointFilter(range_max=args.max_range if args.max_range > 0 else None)
@@ -72,8 +72,7 @@ def main(argv=None) -> int:
                 s.set_pose(frames_io.final_pose(fp), frames_io.AlgoType.INVALID, record=False)
         if args.reduce > 0:
             s.set_reduction(args.reduce, args.octree)
-            with metrics.time(REDUCTION):
-                pts = s.reduced_global()
+            pts = s.reduced_global()  # Scan.reduced_local times the reduction
         else:
             pts = s.points_global()
         if args.per_scan:

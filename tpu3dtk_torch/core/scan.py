@@ -20,7 +20,7 @@ import numpy as np
 from ..io.frames import AlgoType
 from ..io.scandir import RawScan
 from ..ops import reduction as red_ops
-from ..utils.metrics import metrics
+from ..utils.metrics import REDUCTION, metrics
 from . import math3d
 
 __all__ = ["Scan"]
@@ -113,15 +113,18 @@ class Scan:
     def reduced_local(self, seed: int = 0) -> np.ndarray:
         """Reduced points in the scan's local frame, f64 numpy (ref
         calcReducedPoints, scan.cc:432-687: reduction runs on
-        untransformed points; the global transform is deferred)."""
+        untransformed points; the global transform is deferred).  The
+        reduction itself is timed as ``on_demand_reduction_time``; it
+        ends in a host array, so the timer ends synced."""
         if self._reduced_local is None:
-            self._reduced_local = red_ops.reduce_scan(
-                self.xyz.astype(np.float32),
-                self.reduction_voxel,
-                self.reduction_nrpts,
-                seed=seed,
-                device=self.device,
-            ).astype(np.float64)
+            with metrics.time(REDUCTION):
+                self._reduced_local = red_ops.reduce_scan(
+                    self.xyz.astype(np.float32),
+                    self.reduction_voxel,
+                    self.reduction_nrpts,
+                    seed=seed,
+                    device=self.device,
+                ).astype(np.float64)
         return self._reduced_local
 
     def reduced_normals_local(self, k: int = 20) -> np.ndarray:

@@ -76,6 +76,9 @@ CLPAIRS_LINK_CALLS = "clpairs_link_calls"
 LUM_COV = "lum_cov_time"
 LINK_CHUNK = 64  # links whose pair statistics are reduced in one batch
 LUM_SOLVE = "lum_solve_time"
+# metrics timer: a whole relaxation, do_graph_slam or a variant of
+# models.graphslam_variants (padding, upload, spec, covariances, solves)
+LUM_RELAX = "lum_relax_time"
 
 
 def read_net_graph(path: str) -> np.ndarray:
@@ -447,6 +450,7 @@ def _pad_scan_points(scans, cap):
     return locals_pad, masks
 
 
+@metrics.time(LUM_RELAX)
 def do_graph_slam(
     scans: list[Scan], links: np.ndarray, params: LumParams
 ) -> float:

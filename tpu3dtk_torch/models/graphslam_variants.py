@@ -197,8 +197,10 @@ def _assemble(links, valid, Gaa, Gbb, Gab, ra, rb, n_scans: int):
     return Gb[:n, :n].permute(0, 2, 1, 3).reshape(dof * n, dof * n), Rb[:n]
 
 
+@metrics.time(gs.LUM_RELAX)
 def _relax(scans, links, params: LumParams, step) -> float:
-    """The iteration shared by the variants (doGraphSlam6D): raw sums at
+    """The iteration shared by the variants (doGraphSlam6D), their whole
+    relaxation under the ``lum_relax_time`` timer: raw sums at
     the current poses, then ``step(raw)``, which solves, moves scans
     1..n, writes their LUM frames and returns the summed position
     shift; until the mean shift is <= epsilon or the iterations run out."""

@@ -44,6 +44,9 @@ __all__ = ["SequenceRegistration"]
 # them redone by the brute engine because an exactness guard fired
 CHAINED_MATCHES = "chained_icp_matches"
 CHAINED_REDONE = "chained_icp_matches_redone_brute"
+# metrics timer: _prepare's upload of a sequence it has not cached
+# (padding, upload, normals, the chained engine's cell-list spec)
+SEQUENCE_PREPARE = "sequence_prepare_time"
 
 _PAD = 512  # every scan's reduced points are padded to a multiple of this
 
@@ -181,28 +184,29 @@ class SequenceRegistration:
         prep = getattr(self, "_prep", None)
         if prep is not None and prep["key"] == key:
             return prep
-        cap = _round_up(max(len(s.reduced_local()) for s in scans), _PAD)
-        S = len(scans)
-        locals_pad = np.zeros((S, cap, 3), np.float32)
-        masks = np.zeros((S, cap), bool)
-        for si, s in enumerate(scans):
-            r = s.reduced_local()
-            locals_pad[si, : len(r)] = r
-            masks[si, : len(r)] = True
-        normals = None
-        if self._need_normals():
-            normals = torch.as_tensor(
-                np.stack([s.reduced_normals_padded(cap) for s in scans]), device=dev
+        with metrics.time(SEQUENCE_PREPARE):
+            cap = _round_up(max(len(s.reduced_local()) for s in scans), _PAD)
+            S = len(scans)
+            locals_pad = np.zeros((S, cap, 3), np.float32)
+            masks = np.zeros((S, cap), bool)
+            for si, s in enumerate(scans):
+                r = s.reduced_local()
+                locals_pad[si, : len(r)] = r
+                masks[si, : len(r)] = True
+            normals = None
+            if self._need_normals():
+                normals = torch.as_tensor(
+                    np.stack([s.reduced_normals_padded(cap) for s in scans]), device=dev
+                )
+            prep = dict(
+                key=key,
+                device=dev,
+                cap=cap,
+                chain_spec=self._chain_spec(scans, cap),
+                locals=torch.as_tensor(locals_pad, device=dev),
+                masks=torch.as_tensor(masks, device=dev),
+                normals=normals,
             )
-        prep = dict(
-            key=key,
-            device=dev,
-            cap=cap,
-            chain_spec=self._chain_spec(scans, cap),
-            locals=torch.as_tensor(locals_pad, device=dev),
-            masks=torch.as_tensor(masks, device=dev),
-            normals=normals,
-        )
         self._prep = prep
         return prep
 

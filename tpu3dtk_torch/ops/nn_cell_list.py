@@ -53,6 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.metrics import metrics
 from . import nn as nn_ops
 
 __all__ = [
@@ -63,6 +64,7 @@ __all__ = [
 ]
 
 INF = float("inf")
+CELL_LIST_SPEC = "cell_list_spec_time"  # metrics timer: cell_list_spec, host
 PAD_COORD = 1e30  # coordinates of the sorted model's pad rows
 # plain K2: [chunks, T, columns] scores per tile (256 MB of f32)
 _TILE_ELEMS = 1 << 26
@@ -547,6 +549,7 @@ def nn_cell_list_chained(query, qmask, clm: CellListModel, max_dist2,
 # ---------------------------------------------------------------------------
 
 
+@metrics.time(CELL_LIST_SPEC)
 def cell_list_spec(points, max_dist, headroom=1.5,
                    margin_cells=4, max_cells=64_000_000,
                    vmem_budget=12_000_000, queries=None,
