@@ -221,6 +221,48 @@ def test_do_graph_slam_matches_jax_host(rng, engine):
         assert t.frames[-1][1] == int(AlgoType.LUM)
 
 
+def test_host_lum_guard_respecs_from_the_current_clouds(rng, monkeypatch):
+    """A guard that fires in the first iteration re-sizes the link spec
+    with headroom 4 from the current global clouds, as tensors on their
+    device: the JAX package's spec of the same clouds, entry for entry."""
+    from tpu3dtk.ops import nn_pallas as npl
+
+    jscans = _ring_scans(rng)
+    links = np.array([[0, 1], [1, 2], [2, 3], [3, 4], [0, 4], [0, 2]], np.int32)
+    params = tgs.LumParams(
+        device="cpu", chained_min=512, max_dist_match2=2500.0, iterations=5, epsilon=1e-3
+    )
+    link_spec, covariances = tgs._link_spec, tgs.link_covariances_chained
+    specs = []
+
+    def spying_spec(clouds, links, max_dist, headroom, device):
+        got = link_spec(clouds, links, max_dist, headroom, device)
+        host = [np.asarray(c.cpu() if isinstance(c, torch.Tensor) else c) for c in clouds]
+        want = npl.cell_list_spec(
+            np.concatenate(host), max_dist, headroom=headroom, model_sets=host,
+            queries=host, pairs=[(int(i), int(j)) for i, j in links],
+        )
+        specs.append((headroom, isinstance(clouds[0], torch.Tensor), got, want))
+        return got
+
+    def first_guard_fires(*a, **kw):
+        C, CD, m, guard = covariances(*a, **kw)
+        return C, CD, m, guard or len(specs) == 1
+
+    monkeypatch.setattr(tgs, "_link_spec", spying_spec)
+    monkeypatch.setattr(tgs, "link_covariances_chained", first_guard_fires)
+    metrics.reset()
+    scans = _carry(jscans)
+    tgs.do_graph_slam(scans, links, params)
+    assert [(h, on_device) for h, on_device, _g, _w in specs] == [(2.0, False), (4.0, True)]
+    for _h, _d, got, want in specs:
+        assert got is not None and set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    n_it = len(scans[0].frames)
+    assert int(metrics.counters[tgs.CHAINED_LINK_CALLS].total) == len(links) * (n_it + 1)
+
+
 def test_do_graph_slam_trivial_inputs():
     s = _carry([])
     assert tgs.do_graph_slam(s, np.zeros((0, 2), np.int32), tgs.LumParams(device="cpu")) == 0.0

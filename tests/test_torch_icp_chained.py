@@ -106,7 +106,7 @@ def test_chained_engines_run_without_clamp_and_lane(rng, monkeypatch):
     monkeypatch.setattr(ncl, "clamp_table", refuse)
     monkeypatch.setattr(ncl, "_overflow_lane", refuse)
     world, target, _ = _pair(rng)
-    spec = dict(ncl.cell_list_spec(world, 25.0), RB=128)
+    spec = dict(ncl.cell_list_spec(world, 25.0, device="cpu"), RB=128)
     args = (
         torch.as_tensor(world), torch.ones(len(world), dtype=torch.bool),
         torch.as_tensor(target), torch.ones(len(target), dtype=torch.bool),
@@ -124,7 +124,7 @@ def test_chained_engines_run_without_clamp_and_lane(rng, monkeypatch):
     pts = torch.stack([args[0], ticp._chain_transform(bres.T, args[2])])
     masks = torch.ones(pts.shape[:2], dtype=torch.bool)
     links = np.asarray([[0, 1], [1, 0]])
-    spec2 = dict(ncl.cell_list_spec(pts.reshape(-1, 3).numpy(), 25.0), RB=128)
+    spec2 = dict(ncl.cell_list_spec(pts.reshape(-1, 3), 25.0), RB=128)
     C, CD, m, guard = tgs.link_covariances_chained(pts, masks, links, 625.0, spec2)
     bC, bCD, bm = tgs.link_covariances(pts, masks, links, 625.0)
     assert not guard
@@ -197,8 +197,8 @@ def _window1_spec(scans):
 
     clouds = [s.reduced_global().astype(np.float32) for s in scans]
     return ncl.cell_list_spec(
-        np.concatenate(clouds), 50.0, headroom=2.0, model_sets=clouds,
-        queries=clouds, pairs=[(i - 1, i) for i in range(1, len(clouds))],
+        clouds, 50.0, headroom=2.0, model_sets=clouds, queries=clouds,
+        pairs=[(i - 1, i) for i in range(1, len(clouds))], device="cpu",
     )
 
 
@@ -275,3 +275,64 @@ def test_fired_guard_redoes_with_brute():
         np.testing.assert_allclose(x.transMat[:3, 3], y.transMat[:3, 3], atol=0.01)
         np.testing.assert_allclose(x.transMat[:3, :3], y.transMat[:3, :3], atol=1e-6)
         assert len(x.frames) == len(y.frames)
+
+
+def _jax_spec(points, max_dist, device=None, **kw):
+    """The JAX package's spec on the same clouds, as numpy arrays."""
+    def host(c):
+        return c.cpu().numpy() if isinstance(c, torch.Tensor) else np.asarray(c)
+
+    from tpu3dtk.ops import nn_pallas as npl
+
+    pieces = points if isinstance(points, (list, tuple)) else [points]
+    for k in ("model_sets", "queries"):
+        if kw.get(k) is not None:
+            kw[k] = [host(c) for c in kw[k]]
+    return npl.cell_list_spec(np.concatenate([host(p) for p in pieces]), max_dist, **kw)
+
+
+def test_sequence_and_host_lum_equal_a_run_on_the_jax_spec(monkeypatch):
+    """A chained ``SequenceRegistration.run`` and then a host
+    ``do_graph_slam`` over the chain and its closing link, on specs the
+    port sizes and on specs the JAX package sizes: the same specs, so
+    the same poses and frames, bit for bit."""
+    from tpu3dtk_torch.models import graphslam as tgs
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+
+    jscans = _scans(n_pts=5000)
+    links = np.array([[0, 1], [1, 2], [2, 3], [0, 3]], np.int32)
+    lum = tgs.LumParams(
+        max_dist_match2=2500.0, iterations=3, epsilon=1e-3, chained_min=512, device="cpu"
+    )
+
+    def run(spec_fn):
+        scans, params = _carry(jscans, PARAMS)
+        seen = []
+
+        def spec(*a, **kw):
+            seen.append(spec_fn(*a, **kw))
+            return seen[-1]
+
+        monkeypatch.setattr(ncl, "cell_list_spec", spec)
+        metrics.reset()
+        tseq.SequenceRegistration(
+            params=params, metascan=True, device="cpu", chained_min=512
+        ).run(scans)
+        tgs.do_graph_slam(scans, links, lum)
+        assert int(metrics.counters[tseq.CHAINED_MATCHES].total) == len(scans) - 1
+        assert int(metrics.counters[tgs.CHAINED_LINK_CALLS].total) > 0
+        return scans, seen
+
+    port, port_specs = run(ncl.cell_list_spec)
+    jax_run, jax_specs = run(_jax_spec)
+    assert len(port_specs) == len(jax_specs) == 2
+    for got, want in zip(port_specs, jax_specs):
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    for x, y in zip(port, jax_run):
+        np.testing.assert_array_equal(x.transMat, y.transMat)
+        assert len(x.frames) == len(y.frames)
+        for (tx, kx), (ty, ky) in zip(x.frames, y.frames):
+            np.testing.assert_array_equal(tx, ty)
+            assert kx == ky

@@ -28,6 +28,9 @@ from tpu3dtk_torch.ops import nn as tnn
 from tpu3dtk_torch.ops import nn_cell_list as ncl
 from tpu3dtk_torch.ops import nn_cell_list_cuda
 
+from helpers.clouds import DeviceOps
+from helpers.clouds import city_cloud as _city_cloud
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -56,19 +59,6 @@ def _oracle(q, qmask, m, mmask, md2):
     return midx[k], d**2, qmask & (d**2 < md2)
 
 
-def _city_cloud(rng, n):
-    """A ground plane plus a facade, with the vertical axis first: the
-    shape that makes the axis permutation of the spec matter (the
-    identity permutation is not the best one)."""
-    ng = n * 2 // 3
-    g = np.stack([rng.uniform(0, 3000, ng), rng.normal(0, 1, ng),
-                  rng.uniform(0, 3000, ng)], axis=1)
-    nf = n - ng
-    f = np.stack([rng.uniform(0, 3000, nf), rng.uniform(0, 900, nf),
-                  np.full(nf, 1500.0) + rng.normal(0, 1, nf)], axis=1)
-    return np.concatenate([g, f]).astype(np.float32)[:, [1, 2, 0]]
-
-
 def _build_both(model, mmask, spec, max_dist):
     perm = tuple(spec["perm"])
     jclm, joob = _jbuild(
@@ -93,32 +83,122 @@ def _chained_both(q, qmask, jclm, tclm, spec, md2, **over):
     return [np.asarray(x) for x in jout], [x.numpy() for x in tout]
 
 
-@pytest.mark.parametrize("kind", ["uniform", "city"])
-def test_cell_list_spec_equals_jax(rng, kind):
-    if kind == "uniform":
-        clouds = [rng.uniform(0, 600, (3000, 3)).astype(np.float32) for _ in range(3)]
-        max_dist = 25.0
-    else:
-        clouds = [_city_cloud(rng, 6000) + np.float32(5 * k) for k in range(3)]
-        max_dist = 150.0
-    kw = dict(
-        headroom=2.0, model_sets=clouds, queries=clouds,
-        pairs=[(i - 1, i) for i in range(1, len(clouds))],
-    )
-    want = npl.cell_list_spec(np.concatenate(clouds), max_dist, **kw)
-    got = ncl.cell_list_spec(np.concatenate(clouds), max_dist, **kw)
+def _assert_same_spec(got, want):
     assert want is not None and got is not None
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
-    if kind == "city":
-        assert tuple(got["perm"]) != (0, 1, 2)  # the perm search mattered
-    # the simple forms too: union model, with and without queries
-    for extra in ({}, {"queries": clouds[:2]}):
-        w = npl.cell_list_spec(clouds[0], max_dist, **extra)
-        g = ncl.cell_list_spec(clouds[0], max_dist, **extra)
-        for k in w:
-            np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]))
+
+
+def _specs(points, max_dist, **kw):
+    """(the port's spec on CPU tensors: the cloud in pieces, one tensor
+    per numpy cloud, so a set passed as model and query is the same
+    tensor; the JAX package's spec of the concatenated cloud)."""
+    pieces = points if isinstance(points, list) else [points]
+    want = npl.cell_list_spec(np.concatenate(pieces), max_dist, **kw)
+    sets = [*pieces, *(kw.get("model_sets") or ()), *(kw.get("queries") or ())]
+    t = {id(c): _t(c) for c in sets}
+    for k in ("model_sets", "queries"):
+        if kw.get(k) is not None:
+            kw[k] = [t[id(c)] for c in kw[k]]
+    got = ncl.cell_list_spec([t[id(p)] for p in pieces], max_dist, **kw)
+    return got, want
+
+
+def _window1(clouds, closing=False):
+    pairs = [(i - 1, i) for i in range(1, len(clouds))]
+    if closing:
+        pairs.append((0, len(clouds) - 1))  # bremen.net's closing link
+    return dict(headroom=2.0, model_sets=clouds, queries=clouds, pairs=pairs)
+
+
+SPEC_KINDS = ["uniform", "city", "closing_pair", "no_queries", "other_queries",
+              "cell_faces", "max_cells", "chunk_128"]
+
+
+@pytest.mark.parametrize("kind", SPEC_KINDS)
+def test_cell_list_spec_equals_jax(rng, kind):
+    """The port's spec (sort and search on CPU tensors) equals the JAX
+    package's (numpy) entry for entry."""
+    if kind in ("uniform", "city"):
+        if kind == "uniform":
+            clouds = [rng.uniform(0, 600, (3000, 3)).astype(np.float32) for _ in range(3)]
+            max_dist = 25.0
+        else:
+            clouds = [_city_cloud(rng, 6000) + np.float32(5 * k) for k in range(3)]
+            max_dist = 150.0
+        got, want = _specs(clouds, max_dist, **_window1(clouds))
+        _assert_same_spec(got, want)
+        # the numpy form, on the concatenated cloud
+        _assert_same_spec(ncl.cell_list_spec(
+            np.concatenate(clouds), max_dist, device="cpu", **_window1(clouds)
+        ), want)
+        if kind == "city":
+            assert tuple(got["perm"]) != (0, 1, 2)  # the perm search mattered
+        # the simple forms too: union model, with and without queries
+        for extra in ({}, {"queries": clouds[:2]}):
+            _assert_same_spec(*_specs(clouds[0], max_dist, **extra))
+    elif kind == "closing_pair":
+        clouds = [_city_cloud(rng, 4000) + np.float32(5 * k) for k in range(4)]
+        _assert_same_spec(*_specs(clouds, 150.0, **_window1(clouds, closing=True)))
+    elif kind == "no_queries":
+        # each model set is its own query set
+        clouds = [rng.uniform(0, 500, (2000 + 700 * k, 3)).astype(np.float32) for k in range(3)]
+        got, want = _specs(clouds, 25.0, model_sets=clouds)
+        _assert_same_spec(got, want)
+    elif kind == "other_queries":
+        clouds = [_city_cloud(rng, 5000) for _ in range(2)]
+        queries = [(c + rng.normal(0, 20, c.shape)).astype(np.float32) for c in clouds]
+        queries.append(rng.uniform(0, 3000, (1500, 3)).astype(np.float32))
+        _assert_same_spec(*_specs(clouds, 150.0, model_sets=clouds, queries=queries))
+        _assert_same_spec(*_specs(
+            clouds, 150.0, model_sets=clouds, queries=queries, pairs=[(0, 2), (1, 0), (1, 1)]
+        ))
+    elif kind == "cell_faces":
+        # every coordinate a multiple of the cell edge, and so is the grid
+        # origin: each point sits exactly on a cell face
+        cell = 25.0
+        clouds = [
+            (np.round(rng.uniform(0, 900, (3000, 3)) / cell) * cell).astype(np.float32)
+            for _ in range(3)
+        ]
+        _assert_same_spec(*_specs(clouds, cell, **_window1(clouds, closing=True)))
+        _assert_same_spec(*_specs(clouds[1], cell, queries=clouds))
+    elif kind == "max_cells":
+        # the dims of every permutation have the same product, so
+        # max_cells takes every permutation or none
+        clouds = [_city_cloud(rng, 3000) for _ in range(2)]
+        got, want = _specs(clouds, 150.0, **_window1(clouds))
+        _assert_same_spec(got, want)
+        C = int(np.prod(want["dims"]))
+        got, want = _specs(clouds, 150.0, max_cells=C, **_window1(clouds))
+        _assert_same_spec(got, want)
+        got, want = _specs(clouds, 150.0, max_cells=C - 1, **_window1(clouds))
+        assert want is None and got is None
+    else:
+        # a dense cloud and a small budget: at chunk 256 too many chunks
+        # exceed RB for the overflow lane (over_q > 24576), at 128 not
+        cloud = rng.uniform(0, 300, (40000, 3)).astype(np.float32)
+        got, want = _specs(cloud, 25.0, vmem_budget=600_000)
+        _assert_same_spec(got, want)
+        assert got["chunk"] == 128
+        got, want = _specs(cloud, 25.0, vmem_budget=400_000)
+        assert want is None and got is None
+
+
+def test_cell_list_spec_sizes_nothing_by_the_grid(rng):
+    """A sparse cloud in a large grid: no tensor the spec makes has as
+    many elements as the grid has cells, and it reads no scalar."""
+    clouds = [rng.uniform(0, 10000, (3000, 3)).astype(np.float32) for _ in range(3)]
+    tc = [_t(c) for c in clouds]
+    with DeviceOps() as ops:
+        got = ncl.cell_list_spec(tc, 50.0, **_window1(tc, closing=True))
+    want = npl.cell_list_spec(np.concatenate(clouds), 50.0, **_window1(clouds, closing=True))
+    _assert_same_spec(got, want)
+    C = int(np.prod(got["dims"]))
+    assert ops.largest >= 3 * 9000  # the sorted keys: 3 permutations x 9000 points
+    assert C > 100 * ops.largest
+    assert ops.scalar_reads == 0
 
 
 @pytest.mark.parametrize("kind", ["uniform", "city"])
@@ -339,7 +419,7 @@ def test_boundary_exclusion():
         assert bool(found[0]) is want and d2[0] == 100.0
         _, _, jfound = npl.nn_cell_list(m, one, q, one, md2)
         assert bool(jfound[0]) is want
-        spec = ncl.cell_list_spec(np.concatenate([m, q]), float(np.sqrt(md2)))
+        spec = ncl.cell_list_spec([m, q], float(np.sqrt(md2)), device="cpu")
         clm, _ = ncl.build_cell_list_model(
             _t(m), _t(one), spec["origin"], float(np.sqrt(md2)),
             dims=spec["dims"], RB=spec["RB"], perm=spec["perm"],

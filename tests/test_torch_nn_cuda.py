@@ -21,6 +21,8 @@ from tpu3dtk_torch.ops import nn as tnn
 from tpu3dtk_torch.ops import nn_cell_list as ncl
 from tpu3dtk_torch.ops import nn_cell_list_cuda, nn_cuda
 
+from helpers.clouds import DeviceOps, city_cloud
+
 pytestmark = pytest.mark.cuda
 
 
@@ -313,3 +315,31 @@ def test_cell_list_kernel_refuses_bad_inputs(dev):
         nn_cell_list_cuda.cell_list_rows_kernel(table, q, m, 64)
     with pytest.raises(ValueError):
         nn_cell_list_cuda.cell_list_rows_kernel(table.cpu(), q.cpu(), m.cpu(), 256)
+
+
+def test_cell_list_spec_on_the_card_equals_the_cpu(dev):
+    """The spec on CUDA tensors, and on numpy clouds with
+    ``device="cuda"``, equals the spec on CPU tensors: on city clouds, and
+    on the same clouds snapped onto cell faces, where a product by the
+    reciprocal of the cell edge would bin points one cell low.  On the
+    card it reads the device at most twice."""
+    rng = np.random.default_rng(7)
+    cell = 150.0
+    clouds = [city_cloud(rng, 20000) + np.float32(5 * k) for k in range(4)]
+    faces = [(np.round(c / cell) * cell).astype(np.float32) for c in clouds]
+    kw = dict(headroom=2.0, pairs=[(0, 1), (1, 2), (2, 3), (0, 3)])
+    for numpy_sets in (clouds, faces):
+        cpu = [torch.as_tensor(c) for c in numpy_sets]
+        want = ncl.cell_list_spec(cpu, cell, model_sets=cpu, queries=cpu, **kw)
+        assert want is not None
+        card = [c.to(dev) for c in cpu]
+        with DeviceOps() as ops:
+            got = ncl.cell_list_spec(card, cell, model_sets=card, queries=card, **kw)
+        assert ops.cuda_reads <= 2
+        from_numpy = ncl.cell_list_spec(
+            numpy_sets, cell, model_sets=numpy_sets, queries=numpy_sets, device="cuda", **kw
+        )
+        for spec in (got, from_numpy):
+            assert set(spec) == set(want)
+            for k in want:
+                np.testing.assert_array_equal(np.asarray(spec[k]), np.asarray(want[k]))

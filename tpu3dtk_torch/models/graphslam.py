@@ -558,13 +558,14 @@ def _world(group) -> int:
     return dist.get_world_size(group)
 
 
-def _link_spec(clouds, links, max_dist, headroom):
+def _link_spec(clouds, links, max_dist, headroom, device):
     from ..ops import nn_cell_list as ncl
 
     return ncl.cell_list_spec(
-        np.concatenate(clouds), max_dist, headroom=headroom,
+        clouds, max_dist, headroom=headroom,
         model_sets=clouds, queries=clouds,
         pairs=[(int(i), int(j)) for i, j in np.asarray(links)],
+        device=device,
     )
 
 
@@ -595,7 +596,7 @@ def _do_graph_slam_host(
             )
             for s in scans
         ]
-        chain_spec = _link_spec(clouds, links, max_dist, 2.0)
+        chain_spec = _link_spec(clouds, links, max_dist, 2.0, dev)
 
     ret = np.inf
     it = 0
@@ -613,11 +614,10 @@ def _do_graph_slam_host(
                 if guard:
                     # lane overflow / box exit: re-spec from the CURRENT
                     # global clouds with double headroom
-                    pts_host = points_g.cpu().numpy()
                     clouds = [
-                        pts_host[i][masks[i]] for i in range(len(scans))
+                        points_g[i][masks_t[i]] for i in range(len(scans))
                     ]
-                    chain_spec = _link_spec(clouds, links, max_dist, 4.0)
+                    chain_spec = _link_spec(clouds, links, max_dist, 4.0, dev)
                     if chain_spec is not None:
                         C, CD, _m, guard = link_covariances_chained(
                             points_g, masks_t, share,

@@ -367,7 +367,7 @@ def icp_pair_chained(
     T = torch.as_tensor(T0, dtype=torch.float32, device=dev)
     max_dist = float(np.sqrt(max_dist_match2))
     if spec is None:
-        spec = ncl.cell_list_spec(model[mmask].cpu().numpy(), max_dist)
+        spec = ncl.cell_list_spec(model[mmask], max_dist)
     if spec is None:
         return icp_pair(
             model, mmask, target_local, tmask, T,

@@ -232,21 +232,23 @@ class SequenceRegistration:
             ).astype(np.float32)
             for s in scans
         ]
-        all_g = np.concatenate(clouds)
         max_dist = float(np.sqrt(self.params.max_dist_match2))
+        dev = self._device()
         if win_max <= 1:
             # window-1 matching: the model is ONE scan per match — size
             # RB against per-scan models and the consecutive-pair query
             # pattern (the union overestimates by the overlap factor and
             # declines on dense city clouds)
             spec = ncl.cell_list_spec(
-                all_g, max_dist, headroom=2.0,
+                clouds, max_dist, headroom=2.0,
                 model_sets=clouds, queries=clouds,
                 pairs=[(i - 1, i) for i in range(1, len(clouds))],
+                device=dev,
             )
         else:
             spec = ncl.cell_list_spec(
-                all_g, max_dist, headroom=2.0, queries=clouds,
+                clouds, max_dist, headroom=2.0, queries=clouds,
+                device=dev,
             )
         if spec is not None and 9 * spec["RB"] < win_max * cap:
             return spec

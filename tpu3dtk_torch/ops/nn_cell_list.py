@@ -43,7 +43,12 @@ What differs from the JAX package, on purpose:
   (:func:`cell_list_work_items`), so :func:`nn_cell_list_chained` with
   ``RB=None`` ranks the unclamped table and runs no lane.  That is the
   route the ICP and LUM engines take; the clamp and the lane stay
-  reachable through an integer ``RB``.
+  reachable through an integer ``RB``;
+- :func:`cell_list_spec` runs on the tensors' device by sort and search:
+  one sort of every cloud's cell ids, the per-chunk requirements of
+  every pair as searches on it, no array sized by the grid's cell count
+  (the JAX package searches ``arange(C + 1)`` per set on the host), and
+  the same dict.
 """
 
 from __future__ import annotations
@@ -64,7 +69,7 @@ __all__ = [
 ]
 
 INF = float("inf")
-CELL_LIST_SPEC = "cell_list_spec_time"  # metrics timer: cell_list_spec, host
+CELL_LIST_SPEC = "cell_list_spec_time"  # metrics timer: cell_list_spec, to its last read
 PAD_COORD = 1e30  # coordinates of the sorted model's pad rows
 # plain K2: [chunks, T, columns] scores per tile (256 MB of f32)
 _TILE_ELEMS = 1 << 26
@@ -545,19 +550,87 @@ def nn_cell_list_chained(query, qmask, clm: CellListModel, max_dist2,
 
 
 # ---------------------------------------------------------------------------
-# Host-side sizing
+# Sizing: the grid and RB from the clouds, by sort and search on their device
 # ---------------------------------------------------------------------------
+
+_SPEC_PERMS = ((0, 1, 2), (2, 0, 1), (1, 2, 0))
+_SPEC_CHUNKS = (256, 128)
+
+
+def _spec_pieces(points) -> list:
+    """``points`` as a list of [N, 3] clouds: a sequence of clouds is the
+    cloud in pieces, anything else is one cloud."""
+    if isinstance(points, (list, tuple)) and all(np.ndim(p) == 2 for p in points):
+        return list(points)
+    return [points]
+
+
+def _spec_requirements(clouds, used, pair_sets, lo, dims, cell):
+    """Each query chunk's candidate-range requirement, for every axis
+    permutation, chunk size and pair, in one batch on the clouds' device.
+
+    Every used cloud is binned once (f64 ``floor((x - lo) / cell)``,
+    clamped, as numpy bins it) and its ids under permutation j become the
+    keys ``(j * sets + set) * C + id``, sorted once over all of them.  A
+    model set's ``cell_start[x]`` is then a search of its key on the
+    sorted keys less the first row of its block, and a query set's sorted
+    ids are its block: nothing is sized by the cell count C.  Returns (req
+    [3, rows] int64 on the host, the chunk rows per pair for each chunk
+    size)."""
+    dev = clouds[used[0]].device
+    sizes = np.asarray([clouds[s].shape[0] for s in used], np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    N, U, P = int(starts[-1]), len(used), len(_SPEC_PERMS)
+    C = dims[0] * dims[1] * dims[2]  # the same under every permutation
+    x = torch.cat([clouds[s] for s in used]).to(torch.float64)
+    # a tensor divisor: CUDA would multiply by the reciprocal of a host
+    # scalar, which can round a point on a cell face into the cell below
+    cell_t = torch.full((), cell, dtype=torch.float64, device=dev)
+    lo_t = torch.as_tensor(lo, device=dev)
+    top = torch.as_tensor(np.asarray(dims, np.float64) - 1, device=dev)
+    ij = torch.minimum(torch.floor((x - lo_t) / cell_t).clamp(min=0), top).long()
+    set_of = torch.repeat_interleave(
+        torch.arange(U, device=dev), torch.as_tensor(sizes, device=dev), output_size=N
+    )
+    keys = torch.sort(torch.cat([
+        (j * U + set_of) * C + (ij[:, a] * dims[b] + ij[:, b]) * dims[c] + ij[:, c]
+        for j, (a, b, c) in enumerate(_SPEC_PERMS)
+    ])).values
+    # the chunk rows, host side: first and last sorted query row, and the
+    # query and model set of each
+    cols, widths = [], []
+    for chunk in _SPEC_CHUNKS:
+        W = np.asarray([_cdiv(int(sizes[q]), chunk) for _m, q in pair_sets], np.int64)
+        k = np.repeat(np.arange(len(pair_sets)), W)
+        w = np.arange(int(W.sum())) - np.repeat(np.cumsum(W) - W, W)
+        m_u, q_u = (np.asarray([ps[i] for ps in pair_sets], np.int64)[k] for i in (0, 1))
+        first = starts[q_u] + w * chunk
+        last = starts[q_u] + np.minimum(w * chunk + chunk, sizes[q_u]) - 1
+        cols.append(np.stack([first, last, q_u, m_u, starts[m_u]]))
+        widths.append(W)
+    first, last, q_u, m_u, m_start = torch.as_tensor(np.concatenate(cols, 1), device=dev)
+    j = torch.arange(P, device=dev)[:, None]  # [P, 1]
+    offs = torch.as_tensor(
+        [_neighbour_offsets(dims[b], dims[c]) for _a, b, c in _SPEC_PERMS], device=dev
+    )[:, None]  # [P, 1, 9]
+    lo_id = keys[j * N + first] - (j * U + q_u) * C  # [P, rows]
+    hi_id = keys[j * N + last] - (j * U + q_u) * C
+    x = torch.stack([lo_id[..., None] + offs - 1, hi_id[..., None] + offs + 2]).clamp(0, C)
+    model_key = ((j * U + m_u) * C)[..., None]
+    s, e = torch.searchsorted(keys, model_key + x) - (j * N + m_start)[..., None]
+    req = ((e - s).clamp(min=0) + s % 128).amax(-1)
+    return req.cpu().numpy(), widths  # the second and last host read
 
 
 @metrics.time(CELL_LIST_SPEC)
 def cell_list_spec(points, max_dist, headroom=1.5,
                    margin_cells=4, max_cells=64_000_000,
                    vmem_budget=12_000_000, queries=None,
-                   model_sets=None, pairs=None):
-    """Host-side sizing for the device cell list: grid origin/dims over
-    the cloud bbox (+margin for pose drift) and the static RB from the
-    observed per-chunk candidate range lengths.  Returns the same dict
-    as the JAX package's ``cell_list_spec`` for the same input.
+                   model_sets=None, pairs=None, device=None):
+    """Sizing for the device cell list: grid origin/dims over the cloud
+    bbox (+margin for pose drift) and the static RB from the observed
+    per-chunk candidate range lengths.  Returns the same dict as the JAX
+    package's ``cell_list_spec`` for the same input.
 
     Tries the 3 cyclic AXIS PERMUTATIONS x chunk sizes 256/128 and
     returns the smallest-RB configuration: dict(origin, dims, RB, chunk,
@@ -568,82 +641,82 @@ def cell_list_spec(points, max_dist, headroom=1.5,
     columns stay at ground+facade thickness.  ``vmem_budget`` caps RB as
     in the JAX package (the TPU's scratch size; kept so that both
     packages plan alike — whether this card should keep the cap is a
-    measurement question)."""
-    pts_all = np.asarray(points, np.float64)
+    measurement question).
+
+    ``points``, the sets in ``model_sets`` and ``queries`` are numpy
+    arrays or tensors; ``points`` may also be a sequence of clouds, the
+    cloud in pieces (the bbox of their concatenation).  A cloud passed
+    twice, as the same object, is uploaded and binned once.  The work
+    runs on ``device``, else on the tensors' device, else on the package
+    default: one bbox read, the binning and one sort on the device, the
+    per-chunk requirements of every pair in one batch and one read, and
+    the choice from them on the host, as in the JAX package."""
+    pieces = _spec_pieces(points)
+    if device is None:
+        device = next(
+            (c.device for c in [*pieces, *(model_sets or ()), *(queries or ())]
+             if isinstance(c, torch.Tensor)),
+            None,
+        )
+    if device is None:
+        from .. import default_device
+
+        device = default_device()
+    clouds, slot = [], {}
+
+    def upload(c):
+        if id(c) not in slot:
+            slot[id(c)] = len(clouds)
+            clouds.append(torch.as_tensor(c, device=device)[:, :3])
+        return slot[id(c)]
+
+    whole = torch.cat([clouds[upload(p)] for p in pieces])
+    lo_hi = torch.stack(torch.aminmax(whole, dim=0)).to(torch.float64)
+    lo_hi = lo_hi.cpu().numpy()  # the first host read
     cell = float(max_dist)
-    best = None
+    lo = lo_hi[0] - margin_cells * cell
+    hi = lo_hi[1] + margin_cells * cell
+    dims = [int(np.ceil((hi[a] - lo[a]) / cell)) + 1 for a in range(3)]
     if model_sets is None:
-        model_sets = [pts_all]
+        clouds.append(whole)
+        model_slots = [len(clouds) - 1]
+    else:
+        model_slots = [upload(m) for m in model_sets]
+    query_slots = None if queries is None else [upload(q) for q in queries]
     if pairs is None:
         if queries is None:
-            pairs = [(mi, None) for mi in range(len(model_sets))]
+            pairs = [(mi, None) for mi in range(len(model_slots))]
         else:
             pairs = [
                 (mi, qi)
-                for mi in range(len(model_sets))
-                for qi in range(len(queries))
+                for mi in range(len(model_slots))
+                for qi in range(len(query_slots))
             ]
-    for perm in ((0, 1, 2), (2, 0, 1), (1, 2, 0)):
-        pts = pts_all[:, perm]
-        lo = pts.min(0) - margin_cells * cell
-        hi = pts.max(0) + margin_cells * cell
-        dims = tuple(
-            int(np.ceil((hi[i] - lo[i]) / cell)) + 1 for i in range(3)
-        )
-        if dims[0] * dims[1] * dims[2] > max_cells:
-            continue
-        nx, ny, nz = dims
-        C = nx * ny * nz
-
-        def to_ids(cloud):
-            ij = np.clip(
-                np.floor(
-                    (np.asarray(cloud, np.float64)[:, perm] - lo) / cell
-                ).astype(np.int64),
-                0, np.asarray(dims) - 1,
-            )
-            return np.sort((ij[:, 0] * ny + ij[:, 1]) * nz + ij[:, 2])
-
-        starts = [
-            np.searchsorted(to_ids(ms), np.arange(C + 1))
-            for ms in model_sets
-        ]
-        qid_sets = (
-            None if queries is None else [to_ids(qp) for qp in queries]
-        )
-        offs = _neighbour_offsets(ny, nz)
-        for chunk in (256, 128):
+    pair_slots = [
+        (model_slots[mi],
+         query_slots[qi] if qi is not None and query_slots else model_slots[mi])
+        for mi, qi in pairs
+    ]
+    used = sorted({s for ps in pair_slots for s in ps})
+    local = {s: u for u, s in enumerate(used)}
+    pair_sets = [(local[m], local[q]) for m, q in pair_slots]
+    # the cell count is the same under every permutation: the JAX
+    # package's test of max_cells, once per permutation, takes all or none
+    if dims[0] * dims[1] * dims[2] > max_cells or not pairs:
+        return None
+    reqs, widths = _spec_requirements(clouds, used, pair_sets, lo, dims, cell)
+    best = None
+    for perm, req_p in zip(_SPEC_PERMS, reqs):
+        row = 0
+        for chunk, W in zip(_SPEC_CHUNKS, widths):
             # Per-chunk candidate-range requirements against the ACTUAL
             # model sets.  RB is sized at the p99 requirement x headroom:
             # the rare chunks that straddle slow-axis row transitions
             # are repaired exactly by the brute overflow lane, provided
             # their query count stays within its cap.
-            per_pair_reqs = []
-            for (mi, qi) in pairs:
-                cell_start = starts[mi]
-                ids_q = (
-                    qid_sets[qi] if qi is not None and qid_sets
-                    else to_ids(model_sets[mi])
-                )
-                W = _cdiv(len(ids_q), chunk)
-                pad = W * chunk - len(ids_q)
-                idc = np.pad(ids_q, (0, pad), constant_values=C).reshape(
-                    W, chunk
-                )
-                lo_id = idc[:, 0]
-                hi_id = np.where(
-                    idc[:, -1] < C, idc[:, -1],
-                    idc[np.arange(W), np.maximum(
-                        (idc < C).sum(1) - 1, 0
-                    )],
-                )
-                req = np.zeros(W, np.int64)
-                for off in offs:
-                    s = cell_start[np.clip(lo_id + off - 1, 0, C)]
-                    e = cell_start[np.clip(hi_id + off + 2, 0, C)]
-                    ln = np.maximum(e - s, 0) + (s - (s // 128) * 128)
-                    req = np.maximum(req, ln)
-                per_pair_reqs.append(req)
+            ends = row + np.cumsum(W)
+            per_pair_reqs = np.split(req_p[row:ends[-1]], ends[:-1] - row)
+            row = int(ends[-1])
             all_req = np.concatenate(per_pair_reqs)
             if len(all_req) == 0:
                 continue
@@ -664,7 +737,8 @@ def cell_list_spec(points, max_dist, headroom=1.5,
             # drift can grow it), floor 8192
             cap_over = int(_round_up(max(8192, 3 * over_q), 4096))
             cand = dict(
-                origin=lo.astype(np.float32), dims=dims, RB=int(RB),
+                origin=lo[list(perm)].astype(np.float32),
+                dims=tuple(dims[a] for a in perm), RB=int(RB),
                 chunk=int(chunk), perm=perm, cap_over=cap_over,
             )
             if best is None or cand["RB"] < best["RB"]:
