@@ -352,3 +352,222 @@ def test_line_nn_on_h468_matches_jax(h468_pair):
     (lj, rj), (lt, rt) = line64(ji), line64(ti)
     tol = 4 * float(np.spacing(np.float32(max(rj[jf].max(), rt[jf].max()))))
     assert np.abs(lt - lj)[jf].max() <= tol
+
+
+def _unfactored_icp_pair(model, mmask, target_local, tmask, T0, *, max_dist_match2, epsilon,
+                     max_iterations=50, minimizer="quat", pairing="closest_point",
+                     target_normals_local=None):
+    """The eager loop ``icp_pair`` ran before its iteration was factored
+    into ``_icp_step`` (no group, no -R): the reference the factored loop
+    is held to bit for bit.  Also returns which test stopped it."""
+    from tpu3dtk_torch.core import math3d
+    from tpu3dtk_torch.models import minimizers as mz
+    from tpu3dtk_torch.ops import nn as tnn
+
+    need_normals = pairing != "closest_point" or minimizer == "napx"
+    align_fn = mz.get_minimizer(minimizer)
+    bm = tnn.prepare_brute_model(model.to(torch.float32).contiguous(), mmask)
+    target_local = target_local.to(torch.float32)
+    T = torch.as_tensor(T0, dtype=torch.float32)
+    eps = float(np.float32(epsilon))
+    md2 = float(np.float32(max_dist_match2))
+    eye4 = torch.eye(4, dtype=torch.float32)
+    ret = prev = prev2 = 0.0
+    npairs = 0.0
+    it = 0
+    done = False
+    why = "iterations"
+    while not done and it < max_iterations:
+        tgt_global = math3d.transform3(T, target_local)
+        normals_g = None
+        if need_normals:
+            normals_g = math3d.transform3normal(T, target_normals_local).to(torch.float32)
+        m_pts, found = ticp._find_pairs(bm, tgt_global, tmask, md2, pairing, normals_g)
+        stats = mz.pair_stats(m_pts, tgt_global, found)
+        align, err = align_fn(stats)
+        n, err_v, tnorm, rnorm = torch.stack([
+            stats.n.double(),
+            err.double(),
+            torch.linalg.norm(align[:3, 3]).double(),
+            torch.linalg.norm(align[:3, :3] - eye4[:3, :3]).double(),
+        ]).tolist()
+        enough = n > 3
+        if enough:
+            T = align @ T
+        prev2, prev = prev, ret
+        if enough:
+            ret = err_v
+        conv = abs(ret - prev) < eps and abs(ret - prev2) < eps
+        pose_conv = tnorm < ticp._POSE_T and rnorm < ticp._POSE_R
+        done = conv or (pose_conv and enough) or not enough
+        if done:
+            why = "pairs" if not enough else "two-delta" if conv else "pose"
+        npairs = n
+        it += 1
+    return ticp.IcpResult(T=T, error=ret, iterations=it, n_pairs=npairs), why
+
+
+def _assert_same_result(a, b):
+    assert torch.equal(a.T, b.T)
+    assert a.error == b.error and a.iterations == b.iterations and a.n_pairs == b.n_pairs
+
+
+# every capture-safe pair to convergence, then the two stops that end a
+# match early: too few pairs, and the pose fixpoint (epsilon 0 leaves the
+# two-delta test out)
+_STEP_CASES = [(m, p, "converged") for m, p in sorted(ticp.GRAPH_SAFE)] + [
+    ("quat", "closest_point", "pairs"),
+    ("quat", "closest_point", "pose"),
+]
+
+
+@pytest.mark.parametrize("minimizer,pairing,stop", _STEP_CASES)
+def test_icp_step_loop_equals_the_unfactored_loop(minimizer, pairing, stop):
+    """``icp_pair`` on the CPU runs ``_icp_step`` in the host's stop loop:
+    the same pose, error, iterations and pairs as the unfactored loop."""
+    from tpu3dtk_torch.utils.metrics import BRUTE_ICP_ITERATIONS, ICP_GRAPH_REPLAYS, metrics
+
+    pts, mask, normals, T0 = _pair_case(21)
+    model = pts + 10000.0 if stop == "pairs" else pts
+    args = (_t(model), _t(mask), _t(pts), _t(mask), _t(T0))
+    kw = dict(max_dist_match2=625.0, epsilon=0.0 if stop == "pose" else 1e-7,
+              max_iterations=80, minimizer=minimizer, pairing=pairing,
+              target_normals_local=_t(normals))
+    ref, why = _unfactored_icp_pair(*args, **kw)
+    its, reps = (metrics.counters[k].total for k in (BRUTE_ICP_ITERATIONS, ICP_GRAPH_REPLAYS))
+    got = ticp.icp_pair(*args, **kw)
+    _assert_same_result(got, ref)
+    assert metrics.counters[BRUTE_ICP_ITERATIONS].total == its + got.iterations
+    assert metrics.counters[ICP_GRAPH_REPLAYS].total == reps  # the CPU runs eagerly
+    if stop == "converged":
+        assert why in ("two-delta", "pose") and got.iterations > 2
+    else:
+        assert why == stop
+
+
+_CUDA = torch.device("cuda")  # a device name: no card needed
+
+
+@pytest.mark.parametrize("device,subsample,group,minimizer,pairing,graph", [
+    (_CUDA, 1, None, "quat", "closest_point", True),
+    (_CUDA, 1, None, "dual", "closest_plane", True),
+    (torch.device("cpu"), 1, None, "quat", "closest_point", False),
+    (_CUDA, 2, None, "quat", "closest_point", False),
+    (_CUDA, 1, "a process group", "quat", "closest_point", False),
+    (_CUDA, 1, None, "svd", "closest_point", False),
+    (_CUDA, 1, None, "napx", "closest_plane", False),
+    (_CUDA, 1, None, "quat", "along_normal", False),
+])
+def test_graph_path_choice(device, subsample, group, minimizer, pairing, graph):
+    """The graph path runs on a card only, and only where the iteration
+    reads nothing from the host: no collective, no -R draw, a minimizer
+    and pairing of GRAPH_SAFE."""
+    assert ticp._graph_path(device, subsample, group, minimizer, pairing) is graph
+
+
+class _FakeCapture(ticp._CapturedIteration):
+    """A captured iteration without a card: a replay runs the captured
+    step eagerly on the static tensors, which is what the graph replays."""
+
+    made = []
+
+    def __init__(self, step, bm, target_local, tmask, T, normals):
+        import weakref
+
+        self.step = step
+        self.bm = ticp.nn_ops.BruteModel(*(x.clone() for x in bm))
+        self.target, self.tmask, self.T = target_local.clone(), tmask.clone(), T.clone()
+        self.normals = None if normals is None else normals.clone()
+        _FakeCapture.made.append(weakref.ref(self))
+
+    @classmethod
+    def first(cls, step, bm, target_local, tmask, T, normals):
+        T, stop = step(bm, target_local, tmask, T, normals)
+        return T, stop, cls(step, bm, target_local, tmask, T, normals)
+
+    def replay(self):
+        T_next, stop = self.step(self.bm, self.target, self.tmask, self.T, self.normals)
+        self.T.copy_(T_next)
+        return stop
+
+
+def test_graph_cache_with_a_fake_capture(monkeypatch):
+    """The graph path's control flow on the CPU, a fake capture in the
+    graph's place: a shape's first match runs eagerly, its second
+    captures, a later one reuses the capture and replays every
+    iteration; past the cache's bound the least recently used capture
+    is dropped, and past the bound of remembered shapes the oldest is
+    forgotten and runs eagerly again.  Every match equals the eager one."""
+    from tpu3dtk_torch.utils.metrics import BRUTE_ICP_ITERATIONS, ICP_GRAPH_REPLAYS, metrics
+
+    pts, mask, _n, T0 = _pair_case(22)
+    T1 = np.asarray(jm3.euler_to_matrix4([-3.0, 2.0, 1.0], [0.0, 0.01, 0.01], xp=np), np.float32)
+    kw = dict(max_dist_match2=625.0, epsilon=1e-7, max_iterations=60)
+    rows = {"a": 2048, "b": 1536, "c": 1024, "d": 512}
+
+    def match(name, T):
+        r = rows[name]
+        return ticp.icp_pair(_t(pts), _t(mask), _t(pts[:r]), _t(mask[:r]), _t(T), **kw)
+
+    # (shape, start, how its iterations run, captures made, shapes cached)
+    plan = [
+        ("a", T0, "eager", 0, ""), ("a", T1, "capture", 1, "a"), ("a", T0, "replay", 1, "a"),
+        ("b", T1, "eager", 1, "a"), ("b", T0, "capture", 2, "ab"),
+        ("c", T1, "eager", 2, "ab"), ("c", T0, "capture", 3, "bc"),  # "a" dropped
+        ("d", T0, "eager", 3, "bc"),  # "a" forgotten: 3 shapes remembered
+        ("a", T1, "eager", 3, "bc"), ("a", T0, "capture", 4, "ca"),
+    ]
+    eager = [match(name, T) for name, T, *_ in plan]
+
+    cache = ticp.GraphCache(2, seen_cap=3)
+    monkeypatch.setattr(ticp, "_GRAPHS", cache)
+    monkeypatch.setattr(ticp, "_graph_path", lambda *a: True)
+    monkeypatch.setattr(ticp, "_CapturedIteration", _FakeCapture)
+    monkeypatch.setattr(_FakeCapture, "made", [])
+    for (name, T, how, n_made, cached), ref in zip(plan, eager):
+        its, reps = (metrics.counters[k].total for k in (BRUTE_ICP_ITERATIONS, ICP_GRAPH_REPLAYS))
+        got = match(name, T)
+        _assert_same_result(got, ref)
+        assert len(_FakeCapture.made) == n_made
+        assert [k[1] for k in cache.entries] == [rows[c] for c in cached]
+        assert all(k[2:] == (2048, 625.0, "quat", "closest_point") for k in cache.entries)
+        assert metrics.counters[BRUTE_ICP_ITERATIONS].total == its + got.iterations
+        replayed = {"eager": 0, "capture": got.iterations - 1, "replay": got.iterations}[how]
+        assert metrics.counters[ICP_GRAPH_REPLAYS].total == reps + replayed
+    # the dropped capture of "a" is freed with its static tensors
+    assert _FakeCapture.made[0]() is None and _FakeCapture.made[3]() is not None
+    assert ticp._GRAPHS is cache and cache.cap == 2 and len(cache.seen) == 3
+
+
+@pytest.mark.parametrize("minimizer,pairing", sorted(ticp.GRAPH_SAFE))
+def test_icp_step_reads_nothing_from_the_host(minimizer, pairing, monkeypatch):
+    """What a CUDA graph can hold: the iteration of every capture-safe
+    pair makes no scalar read, no copy to host data and builds no tensor
+    from host data.  On the CPU a ``.tolist()``, ``.numpy()`` or
+    ``.cpu()`` dispatches nothing, so those, and the reads behind a
+    Python ``bool``, ``int`` or ``float`` of a tensor, raise here."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def host_read(*a, **k):
+        raise AssertionError("a host read inside the ICP iteration")
+
+    for name in ("tolist", "numpy", "cpu", "item", "__bool__", "__int__", "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, host_read)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    pts, mask, normals, T0 = _pair_case(23)
+    bm = ticp.nn_ops.prepare_brute_model(_t(pts), _t(mask))
+    nrm = _t(normals) if pairing != "closest_point" else None
+    args = (bm, _t(pts), _t(mask), _t(T0), nrm)
+    with Ops() as ops:
+        T, stop = ticp._icp_step(*args, 625.0, minimizer, pairing)
+    assert len(ops.names) > 20 and T.shape == (4, 4) and stop.dtype == torch.float64
+    assert not [n for n in ops.names if n in ("aten::_local_scalar_dense", "aten::lift_fresh")]

@@ -24,10 +24,12 @@ recompute every pairing.
 
 The JAX package has a second, segmented loop that runs matching and
 loop detection in on-device segments to pay one device fetch per closure
-instead of one per match; an eager PyTorch ICP loop reads the host once
-per iteration anyway, so the port has the per-match loop only, and no
-seq_mesh.  Its lum_mesh is ``lum_group``, which splits the ``-G 1``
-relaxation's links over the ranks of a process group.
+instead of one per match; the port's ICP loop reads four stop scalars
+from the host once per iteration anyway (after an eager iteration, or on
+a card after one replay of the iteration's CUDA graph), so the port has
+the per-match loop only, and no seq_mesh.  Its lum_mesh is
+``lum_group``, which splits the ``-G 1`` relaxation's links over the
+ranks of a process group.
 """
 
 from __future__ import annotations

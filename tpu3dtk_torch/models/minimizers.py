@@ -132,8 +132,9 @@ def pair_stats(m, d, w, group=None) -> PairStats:
 def _finish(R, stats: PairStats):
     """Assemble T = [R | cm - R cd] and the f64 RMS error."""
     t = stats.centroid_m - R @ stats.centroid_d
-    # built out of place, so that torch.func.vmap can batch it
-    last = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype, device=R.device)
+    # built out of place, so that torch.func.vmap can batch it, and by a
+    # fill on the device (no host copy), so that a CUDA graph can hold it
+    last = _eye(4, R)[3:]
     T = torch.cat([torch.cat([R, t[:, None].to(R.dtype)], 1), last], 0)
     err = torch.sqrt(stats.sum_d2 / torch.clamp(stats.n, min=1.0))
     return T, err

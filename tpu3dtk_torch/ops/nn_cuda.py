@@ -12,7 +12,9 @@ tensors only and raises on anything else; the plain PyTorch version is
 by device.  The model comes prepared (``ops.nn.BruteModel``, once per
 match) or bare, and is then prepared here; around that, one call is two
 allocations and one C call that launches three kernels (fill, rank,
-accept).  ``nn_brute_kernel.launches`` counts the calls that launched.
+accept).  ``nn_brute_kernel.launches`` counts the calls that launched;
+a call recorded in a CUDA graph counts once for each replay of the
+graph (:class:`CapturedCalls`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 from . import cuda_build
 from .nn import BruteModel, prepare_brute_model
 
-__all__ = ["nn_brute_kernel", "load"]
+__all__ = ["CapturedCalls", "nn_brute_kernel", "load"]
 
 _SOURCES = ["nn_brute.cu"]
 QB = 512  # queries per block: 128 threads x 4 queries (csrc/nn_brute.cu)
@@ -140,3 +142,23 @@ def nn_brute_kernel(query, qmask, model, mmask, max_dist2):
 
 
 nn_brute_kernel.launches = 0
+
+
+class CapturedCalls:
+    """K1 calls recorded in a CUDA graph: inside ``with`` the calls of a
+    capture launch nothing, so ``nn_brute_kernel.launches`` leaves them
+    out; :meth:`replayed` counts them once for a replay of the graph,
+    which launches them."""
+
+    calls = 0
+
+    def __enter__(self):
+        self._before = nn_brute_kernel.launches
+        return self
+
+    def __exit__(self, *exc):
+        self.calls = nn_brute_kernel.launches - self._before
+        nn_brute_kernel.launches = self._before
+
+    def replayed(self) -> None:
+        nn_brute_kernel.launches += self.calls

@@ -83,3 +83,7 @@ metrics = MetricRegistry()
 MATCHING = "matching_time"
 REDUCTION = "on_demand_reduction_time"
 SCAN_LOAD = "read_scan_time"
+# counters of the brute ICP engine (``models.icp.icp_pair``): its
+# iterations, and those that ran as a replay of a captured CUDA graph
+BRUTE_ICP_ITERATIONS = "brute_icp_iterations"
+ICP_GRAPH_REPLAYS = "icp_graph_replays"
