@@ -78,12 +78,12 @@ exit code and no result line):
 7. kernels B — K2 (the cell-list kernel) against its plain version at the
    bremen path's shape (scans 0 and 1 of the 13 x 1M-point city sequence
    reduced on the card, the first match's first NN call), on the table
-   clamped to RB and on the unclamped one: identical rows and scores; the
-   work items per call and their size R; the
-   chain as the path runs it (RB=None: no clamp, no lane) and with RB
-   against K1 at the same shape; the times the lane decision rests on; a
-   forced overflow (RB=128) repaired by the lane; the lane's capacity
-   exceeded; the strict boundary; times and the kernel's bound.
+   the path plans: identical rows and scores; the longest range; the work
+   items per call, their size R and the init kernel's item prefix; the
+   chain as the path runs it against K1 at the same shape; the strict
+   boundary through ``nn_cell_list``; times and the kernel's bound.  (The
+   clamped-table, RB-chain, lane-timing, forced-overflow and
+   lane-capacity checks went with the RB route.)
 8. slice B — ``torchslam ... -n bremen.net`` on all 13 scans (-r 20 -O 1
    -d 150 -i 50 --epsICP 1e-4 -I 5 -D 150 --epsSLAM 0.5): K2's launch
    count must equal the chained ICP loop trips plus the chained LUM link
@@ -1320,59 +1320,45 @@ def bremen_phases(dev, params_city):
         7, "kernels B",
         f"reduction {red_s:.2f} s a scan; scans 0 and 1: "
         f"{int(prep['masks'][0].sum())} and {int(prep['masks'][1].sum())} reduced points, "
-        f"padded to {prep['cap']}; spec sized on the host in {time.perf_counter() - t0:.2f} s: "
-        f"RB={spec['RB']} chunk={spec['chunk']} perm={spec['perm']} dims={spec['dims']} "
-        f"cap_over={spec['cap_over']}",
+        f"padded to {prep['cap']}; spec sized in {time.perf_counter() - t0:.2f} s: "
+        f"RB={spec['RB']} chunk={spec['chunk']} perm={spec['perm']} dims={spec['dims']}",
     )
     pair_mats = cu(np.stack(odo_mats[:2]).astype(np.float32))
     model, mmask = icp_mod._window(prep["locals"], prep["masks"], pair_mats, 0, 1, 1)
     model = model.contiguous()
     q = math3d.transform3(pair_mats[1], prep["locals"][1]).to(torch.float32).contiguous()
     qm = prep["masks"][1].contiguous()
-    kw = dict(dims=spec["dims"], RB=spec["RB"], chunk=spec["chunk"],
-              perm=tuple(spec["perm"]), cap_over=spec["cap_over"])
+    kw = dict(dims=spec["dims"], chunk=spec["chunk"], perm=tuple(spec["perm"]))
     clm, oob_m = ncl.build_cell_list_model(
-        model, mmask, spec["origin"], CITY_DIST, dims=spec["dims"], RB=spec["RB"],
-        perm=kw["perm"],
-    )
-    table, q_s, order, maxlen, oob_q = ncl.cell_list_plan_device(
-        q, qm, clm, dims=spec["dims"], chunk=spec["chunk"], perm=kw["perm"]
-    )
+        model, mmask, spec["origin"], CITY_DIST, dims=spec["dims"], perm=kw["perm"])
+    table, q_s, order, oob_q = ncl.cell_list_plan_device(q, qm, clm, **kw)
     check(int(oob_m) == 0 and int(oob_q) == 0, "points outside the grid box at the odometry poses")
-    table_c = ncl.clamp_table(table, spec["RB"])
     T = spec["chunk"]
     W = table.shape[0]
     Mrows = clm.model_sorted.shape[0]
-    n_over_chunks = int(((table[:, 3::3] + table[:, 4::3]).max(dim=1).values > spec["RB"]).sum())
+    longest_range = int((table[:, 3::3] + table[:, 4::3]).max())
     R = nn_cell_list_cuda.ITEM_ROWS
     k2_slots = LOOP_SLOTS["nn_cell_list"]
-    k2_err = 0.0
-    shapes = {}
-    for tname, tab in (("clamped", table_c), ("unclamped", table)):
-        k_rows, k_score = cell_list_rows_kernel(tab, q_s, clm.model_sorted, T)
-        p_rows, p_score = ncl.cell_list_rows(tab, q_s, clm.model_sorted, T)
-        torch.cuda.synchronize()
-        check(torch.equal(k_rows, p_rows), f"K2 ({tname}): rows differ from the plain version")
-        fin = torch.isfinite(p_score)
-        check(torch.equal(torch.isfinite(k_score), fin), f"K2 ({tname}): candidate-less queries differ")
-        e = (k_score[fin] - p_score[fin]).abs().max().item()
-        check(e == 0.0, f"K2 ({tname}): scores differ from the plain version by {e}")
-        k2_err = max(k2_err, e)
-        fk = ncl.cell_list_post_device(k_rows, order, q, qm, clm, md2)[2]
-        fp = ncl.cell_list_post_device(p_rows, order, q, qm, clm, md2)[2]
-        check(torch.equal(fk, fp), f"K2 ({tname}): found differs from the plain version")
-        prefix, totals = ncl.cell_list_work_items(tab, Mrows, R)
-        # the item prefix the library's init kernel left in its scratch
-        scratch = torch.empty(W * T + W + 2, dtype=torch.int64, device=dev)
-        nn_cell_list_cuda._launch(
-            tab, q_s, clm.model_sorted, T, R, 8, scratch, torch.empty_like(k_rows),
-            torch.empty_like(k_score))
-        check(torch.equal(scratch[W * T + 1:], prefix),
-              f"K2 ({tname}): the kernel's item prefix differs from cell_list_work_items")
-        shapes[tname] = dict(
-            rows=k_rows, found=int(fk.sum()), cand=int(totals.sum()),
-            longest=int(totals.max()), items=int(prefix[-1]),
-        )
+    k_rows, k_score = cell_list_rows_kernel(table, q_s, clm.model_sorted, T)
+    p_rows, p_score = ncl.cell_list_rows(table, q_s, clm.model_sorted, T)
+    torch.cuda.synchronize()
+    check(torch.equal(k_rows, p_rows), "K2: rows differ from the plain version")
+    fin = torch.isfinite(p_score)
+    check(torch.equal(torch.isfinite(k_score), fin), "K2: candidate-less queries differ")
+    k2_err = (k_score[fin] - p_score[fin]).abs().max().item()
+    check(k2_err == 0.0, f"K2: scores differ from the plain version by {k2_err}")
+    fk = ncl.cell_list_post_device(k_rows, order, q, qm, clm, md2)[2]
+    fp = ncl.cell_list_post_device(p_rows, order, q, qm, clm, md2)[2]
+    check(torch.equal(fk, fp), "K2: found differs from the plain version")
+    prefix, totals = ncl.cell_list_work_items(table, Mrows, R)
+    # the item prefix the library's init kernel left in its scratch
+    scratch = torch.empty(W * T + W + 2, dtype=torch.int64, device=dev)
+    nn_cell_list_cuda._launch(
+        table, q_s, clm.model_sorted, T, R, 8, scratch, torch.empty_like(k_rows),
+        torch.empty_like(k_score))
+    check(torch.equal(scratch[W * T + 1:], prefix),
+          "K2: the kernel's item prefix differs from cell_list_work_items")
+    cand, items = int(totals.sum()), int(prefix[-1])
 
     # raw launches queued back to back outlast their launch, so two CUDA
     # events give the three kernels' device time whatever the profiler sees
@@ -1380,123 +1366,72 @@ def bremen_phases(dev, params_city):
     o_score = torch.empty(W * T, dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def raw_ms(tab):
+    def raw_ms():
         return burst_ms(lambda: nn_cell_list_cuda._launch(
-            tab, q_s, clm.model_sorted, T, R, sms * nn_cell_list_cuda.BLOCKS_PER_SM,
+            table, q_s, clm.model_sorted, T, R, sms * nn_cell_list_cuda.BLOCKS_PER_SM,
             scratch, o_rows, o_score))
 
-    dev_c = [raw_ms(table_c)]
-    dev_u = [raw_ms(table) for _ in range(2)]
-    dev_c.append(raw_ms(table_c))
-    d_ms, du_ms = min(dev_c), min(dev_u)
+    dev_u = [raw_ms() for _ in range(2)]
+    du_ms = min(dev_u)
     _, k2_api = device_ms(
         lambda: cell_list_rows_kernel(table, q_s, clm.model_sorted, T), K2_KERNELS)
-    k_ms = cuda_ms(lambda: cell_list_rows_kernel(table_c, q_s, clm.model_sorted, T))
     ku_ms = cuda_ms(lambda: cell_list_rows_kernel(table, q_s, clm.model_sorted, T))
-    p_ms = cuda_ms(lambda: ncl.cell_list_rows(table_c, q_s, clm.model_sorted, T), reps=3, warmup=1)
     pu_ms = cuda_ms(lambda: ncl.cell_list_rows(table, q_s, clm.model_sorted, T), reps=3, warmup=1)
     check(k2_api <= 3, f"a K2 call made {k2_api} kernel launches, want <= 3")
-    sc, su = shapes["clamped"], shapes["unclamped"]
-    pairs, u_pairs = sc["cand"] * T, su["cand"] * T
+    u_pairs = cand * T
     nbytes = table.numel() * 4 + q_s.numel() * 4 + clm.model_sorted.numel() * 4 + 8 * W * T
-    bound_ms, bound_by, instr_ms = nn_bound(pairs, nbytes, k2_slots)
-    u_bound_ms, _, u_instr_ms = nn_bound(u_pairs, nbytes, k2_slots)
+    u_bound_ms, bound_by, u_instr_ms = nn_bound(u_pairs, nbytes, k2_slots)
     phase(
         7, "kernels B",
         f"K2 at the first bremen NN call: Q={q.shape[0]} M={model.shape[0]} W={W} chunks of {T}; "
-        f"clamped (RB {spec['RB']}, {n_over_chunks} chunks clamped) and unclamped table: rows "
-        f"identical, max|score diff|={k2_err:.1e}, found identical ({sc['found']} / {su['found']}); "
-        f"candidate rows per chunk: mean {sc['cand'] / W:.1f} / {su['cand'] / W:.1f}, max "
-        f"{sc['longest']} / {su['longest']}, longest range {int(maxlen)}; work items of R={R} "
-        f"rows: {sc['items']} / {su['items']} a call, grid {sms} x {nn_cell_list_cuda.BLOCKS_PER_SM} blocks",
+        f"rows identical to the plain version, max|score diff|={k2_err:.1e}, found identical "
+        f"({int(fk.sum())}); candidate rows per chunk: mean {cand / W:.1f}, max {int(totals.max())}, "
+        f"longest range (shift + length) {longest_range}; work items of R={R} rows: {items} a "
+        f"call, grid {sms} x {nn_cell_list_cuda.BLOCKS_PER_SM} blocks",
     )
     phase(
         7, "kernels B",
         f"K2 device time (init + items + unpack, two CUDA events around 20 raw launches queued "
-        f"back to back, in turns): clamped {dev_c[0]:.4f} / {dev_c[1]:.4f} ms, unclamped {dev_u[0]:.4f} / "
-        f"{dev_u[1]:.4f} ms; {k2_api:.1f} kernel launches a wrapper call; wrapper {k_ms:.4f} ms "
-        f"clamped, {ku_ms:.4f} ms unclamped, plain {p_ms:.4f} ms "
-        f"clamped, {pu_ms:.4f} ms unclamped",
+        f"back to back): {dev_u[0]:.4f} / {dev_u[1]:.4f} ms; {k2_api:.1f} kernel launches a "
+        f"wrapper call; wrapper {ku_ms:.4f} ms, plain {pu_ms:.4f} ms",
     )
     phase(
         7, "kernels B",
-        f"K2 bound (clamped): {pairs:.4g} pairs x {PAIR_FLOPS} f32 operations over 67 TFLOP/s vs "
-        f"{nbytes:.4g} bytes over 3.35 TB/s = {bound_ms:.5f} ms (bound by {bound_by}); candidate "
-        f"bytes {sc['cand'] * 16 / PEAK_BYTES * 1e3:.5f} ms; at the instruction rate of its inner loop "
-        f"({k2_slots:.2f} slots a pair, {LANE_INSTR_PER_S / k2_slots:.3g} pairs/s) {instr_ms:.5f} ms; "
-        f"measured {pairs / d_ms / 1e9:.4g}e12 pairs/s; unclamped: {u_pairs:.4g} pairs, bound "
-        f"{u_bound_ms:.5f} ms, instruction rate {u_instr_ms:.5f} ms, measured {u_pairs / du_ms / 1e9:.4g}e12 pairs/s",
+        f"K2 bound: {u_pairs:.4g} pairs x {PAIR_FLOPS} f32 operations over 67 TFLOP/s vs "
+        f"{nbytes:.4g} bytes over 3.35 TB/s = {u_bound_ms:.5f} ms (bound by {bound_by}); candidate "
+        f"bytes {cand * 16 / PEAK_BYTES * 1e3:.5f} ms; at the instruction rate of its inner loop "
+        f"({k2_slots:.2f} slots a pair, {LANE_INSTR_PER_S / k2_slots:.3g} pairs/s) {u_instr_ms:.5f} ms; "
+        f"measured {u_pairs / du_ms / 1e9:.4g}e12 pairs/s",
     )
 
-    # the chain as the path runs it (RB=None) and with RB, against K1: all exact
+    # the chain as the path runs it, against K1: both exact
     b_idx, b_d2, b_found = nn_cuda.nn_brute_kernel(q, qm, model, mmask, md2)
-    kw_path = dict(kw, RB=None)
-    for cname, ckw in (("RB=None", kw_path), (f"RB={spec['RB']}", kw)):
-        c_idx, c_d2, c_found, c_ovf, c_oob = ncl.nn_cell_list_chained(q, qm, clm, md2, **ckw)
-        torch.cuda.synchronize()
-        check(not bool(c_ovf) and int(c_oob) == 0, f"chain ({cname}): a guard fired at the odometry poses")
-        check(torch.equal(c_found, b_found), f"chain ({cname}) vs K1: found differs")
-        agree = (c_idx[c_found] == b_idx[c_found]).double().mean().item()
-        d2_err = (c_d2[c_found] - b_d2[c_found]).abs().max().item()
-        # K1 ranks on coordinates centred on the model mean, K2 on the raw
-        # ones: a pair of candidates closer than that rounding (~1e-3 cm at
-        # 10^4 cm extents) may swap; d2 is recomputed exactly for both
-        check(agree >= 0.999, f"chain ({cname}) vs K1: index agreement {agree}")
-        check(d2_err <= 0.5, f"chain ({cname}) vs K1: chosen d2 differs by {d2_err}")
-        phase(7, "kernels B", f"chain ({cname}) vs K1 at {q.shape[0]} x {model.shape[0]}: found "
-              f"identical ({int(c_found.sum())}), index agreement {agree:.6f}, max|d2 diff| {d2_err:.3e}")
-    chain_ms = [cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw_path), reps=10)]
-    chain_rb_ms = [cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw), reps=10)
-                   for _ in range(2)]
-    chain_ms.append(cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw_path), reps=10))
+    c_idx, c_d2, c_found, c_oob = ncl.nn_cell_list_chained(q, qm, clm, md2, **kw)
+    torch.cuda.synchronize()
+    check(int(c_oob) == 0, "chain: the grid-box guard fired at the odometry poses")
+    check(torch.equal(c_found, b_found), "chain vs K1: found differs")
+    agree = (c_idx[c_found] == b_idx[c_found]).double().mean().item()
+    d2_err = (c_d2[c_found] - b_d2[c_found]).abs().max().item()
+    # K1 ranks on coordinates centred on the model mean, K2 on the raw
+    # ones: a pair of candidates closer than that rounding (~1e-3 cm at
+    # 10^4 cm extents) may swap; d2 is recomputed exactly for both
+    check(agree >= 0.999, f"chain vs K1: index agreement {agree}")
+    check(d2_err <= 0.5, f"chain vs K1: chosen d2 differs by {d2_err}")
+    phase(7, "kernels B", f"chain vs K1 at {q.shape[0]} x {model.shape[0]}: found "
+          f"identical ({int(c_found.sum())}), index agreement {agree:.6f}, max|d2 diff| {d2_err:.3e}")
+    chain_ms = [cuda_ms(lambda: ncl.nn_cell_list_chained(q, qm, clm, md2, **kw), reps=10)
+                for _ in range(2)]
     k1_ms = cuda_ms(lambda: nn_cuda.nn_brute_kernel(q, qm, model, mmask, md2), reps=5, warmup=1)
-    lane_args = ncl.cell_list_post_device(shapes["clamped"]["rows"], order, q, qm, clm, md2)
-
-    def lane():
-        return ncl._overflow_lane(
-            table, order, q, qm, *lane_args, clm, md2, RB=spec["RB"], chunk=T,
-            cap_over=spec["cap_over"])
-
-    lane_ms = cuda_ms(lane, reps=10)
-    lane_dev_ms, lane_api = device_ms(lane, ("",))  # every device event of the call
-    plan_ms = cuda_ms(lambda: ncl.cell_list_plan_device(
-        q, qm, clm, dims=spec["dims"], chunk=T, perm=kw["perm"]), reps=10)
-    post_ms = cuda_ms(lambda: ncl.cell_list_post_device(
-        shapes["unclamped"]["rows"], order, q, qm, clm, md2), reps=10)
+    plan_ms = cuda_ms(lambda: ncl.cell_list_plan_device(q, qm, clm, **kw), reps=10)
+    post_ms = cuda_ms(lambda: ncl.cell_list_post_device(k_rows, order, q, qm, clm, md2), reps=10)
     phase(
         7, "kernels B",
-        f"one chained NN call, in turns: RB=None (the path) {chain_ms[0]:.4f} / {chain_ms[1]:.4f} ms, "
-        f"RB={spec['RB']} with the lane {chain_rb_ms[0]:.4f} / {chain_rb_ms[1]:.4f} ms; parts timed "
-        f"alone: query plan {plan_ms:.4f} ms, K2 wrapper {ku_ms:.4f} ms, post {post_ms:.4f} ms, "
-        f"overflow lane {lane_ms:.4f} ms ({lane_dev_ms:.4f} ms of it device time, {lane_api:.1f} "
-        f"kernel launches); K1 brute at this shape {k1_ms:.4f} ms",
+        f"one chained NN call: {chain_ms[0]:.4f} / {chain_ms[1]:.4f} ms; parts timed alone: "
+        f"query plan {plan_ms:.4f} ms, K2 wrapper {ku_ms:.4f} ms, post {post_ms:.4f} ms; K1 "
+        f"brute at this shape {k1_ms:.4f} ms",
     )
-    phase(
-        7, "kernels B",
-        f"lane decision: K2 on the unclamped table {du_ms:.4f} ms against K2 on the clamped table "
-        f"{d_ms:.4f} ms + the lane's device time {lane_dev_ms:.4f} ms",
-    )
-    check(du_ms <= d_ms + lane_dev_ms,
-          "unclamped K2 is slower than clamped K2 plus the lane: the path's RB=None route is the wrong one")
 
-    # forced overflow: RB=128 clamps every range of a 30000-query subset;
-    # the lane (K1) repairs them all
-    sub = torch.randperm(q.shape[0], generator=torch.Generator().manual_seed(1))[:30000].to(dev)
-    qs, qms = q[sub].contiguous(), qm[sub].contiguous()
-    small = dict(kw, RB=128, cap_over=32768)
-    clm_s, _ = ncl.build_cell_list_model(
-        model, mmask, spec["origin"], CITY_DIST, dims=spec["dims"], RB=128, perm=kw["perm"])
-    o_idx, o_d2, o_found, o_ovf, _ = ncl.nn_cell_list_chained(qs, qms, clm_s, md2, **small)
-    check(not bool(o_ovf), "forced overflow: the lane's capacity was exceeded")
-    check(torch.equal(o_found, b_found[sub]), "forced overflow: found differs from K1")
-    o_agree = (o_idx[o_found] == b_idx[sub][o_found]).double().mean().item()
-    check(o_agree >= 0.999, f"forced overflow: index agreement with K1 {o_agree}")
-    _, _, _, cap_ovf, _ = ncl.nn_cell_list_chained(qs, qms, clm_s, md2, **dict(small, cap_over=4096))
-    check(bool(cap_ovf), "lane capacity exceeded but the overflow guard stayed green")
-    phase(7, "kernels B", f"forced overflow (RB=128, 30000 queries): repaired by the lane, "
-          f"equal to K1 ({int(o_found.sum())} found); with cap_over=4096 the guard fires")
-
-    # the strict boundary through the host-planned form
+    # the strict boundary through nn_cell_list (spec, model build, chain)
     nq = 5000
     qb = np.zeros((nq, 3), np.float32)
     qb[:, 0] = 40.0 * (np.arange(nq) % 70)
@@ -1557,8 +1492,8 @@ def bremen_phases(dev, params_city):
           f"K2 launches {k2_launches} != ICP loop trips {trips} + LUM link calls {link_calls}")
     check(n_chain == CITY_SCANS - 1, f"{n_chain} matches went to the chained engine")
     check(n_redone < n_chain, "every chained match was redone by brute")
-    # the path runs the chain without the overflow lane, so K1 runs only
-    # where a fired guard had a match redone by the brute engine
+    # K1 runs only where a fired grid-box guard had a match redone by the
+    # brute engine
     check((k1_launches > 0) == (n_redone > 0),
           f"K1 launches {k1_launches} on the bremen path with {n_redone} matches redone by brute")
     tags = [list(t) for _m, t in frames]
@@ -1588,7 +1523,7 @@ def bremen_phases(dev, params_city):
         8, "slice B",
         f"K2 launches {k2_launches} = {trips} chained ICP loop trips + {link_calls} chained LUM "
         f"link calls; matches redone by brute {n_redone} of {n_chain}; K1 launches "
-        f"{k1_launches} (brute redos only: the path runs no overflow lane)",
+        f"{k1_launches} (brute redos only)",
     )
     phase(
         8, "slice B",
@@ -1674,12 +1609,10 @@ def bremen_phases(dev, params_city):
         export_parser_phase(tmp, city_scans, os.path.join(tmp, "e57"))
     finally:
         city_tmp.cleanup()
-    # the path gives K2 the unclamped table: the line's numbers are that
-    # shape's; the clamped table's device time stays beside them
     return {
         "launches": k2_launches, "k1_launches": k1_launches, "max_abs_err": k2_err,
         "ms": ku_ms, "plain_ms": pu_ms, "device_ms": du_ms, "bound_ms": u_bound_ms,
-        "bound_by": bound_by, "instr_bound_ms": u_instr_ms, "clamped_device_ms": d_ms,
+        "bound_by": bound_by, "instr_bound_ms": u_instr_ms,
         "launches_formats": formats, "k1_launches_scandiff": k1_scandiff, "scandiff": scandiff,
         "k1_launches_collision": k1_collision, "collision": collision_k1,
         "k1_launches_bkd": k1_bkd,
@@ -5410,7 +5343,6 @@ def main() -> int:
         "bound_by": k2["bound_by"],
         "instr_bound_ms": k2["instr_bound_ms"],
         "library_ms": None,
-        "clamped_device_ms": k2["clamped_device_ms"],
         "launches_formats_las": k2["launches_formats"]["las"],
         "launches_formats_e57": k2["launches_formats"]["e57"],
         "launches_slice9": 0,

@@ -91,20 +91,15 @@ def test_icp_pair_chained_matches_jax(rng):
     assert abs(tres.iterations - bres.iterations) <= 1
 
 
-def test_chained_engines_run_without_clamp_and_lane(rng, monkeypatch):
-    """The route the engines take: ``nn_cell_list_chained(RB=None)``, so
-    neither ``clamp_table`` nor the overflow lane runs, even with a spec
-    whose RB is far below the chunks' candidate ranges; the poses stay
-    those of the brute engine (both exact: 0.01 cm / 1e-6, iterations
-    within 1)."""
+def test_chained_engines_run_without_clamp_and_lane(rng):
+    """The chained ICP and LUM link engines on a spec whose RB is far
+    below the chunks' candidate ranges: the port has no clamp and no
+    lane, RB limits nothing, so the poses stay those of the brute engine
+    (both exact: 0.01 cm / 1e-6, iterations within 1) and the link sums
+    are the brute engine's."""
     from tpu3dtk_torch.models import graphslam as tgs
     from tpu3dtk_torch.ops import nn_cell_list as ncl
 
-    def refuse(*a, **k):
-        raise AssertionError("the RB route ran")
-
-    monkeypatch.setattr(ncl, "clamp_table", refuse)
-    monkeypatch.setattr(ncl, "_overflow_lane", refuse)
     world, target, _ = _pair(rng)
     spec = dict(ncl.cell_list_spec(world, 25.0, device="cpu"), RB=128)
     args = (
@@ -131,6 +126,28 @@ def test_chained_engines_run_without_clamp_and_lane(rng, monkeypatch):
     np.testing.assert_array_equal(m, bm.numpy())
     np.testing.assert_allclose(C, bC.numpy(), rtol=1e-6)
     np.testing.assert_allclose(CD, bCD.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_link_guard_fires_on_a_target_point_outside_the_box(rng):
+    """``link_covariances_chained``'s guard: green when every point lies
+    in the spec's grid box; fired when a masked-in target point of a link
+    leaves it; green again when that point is masked out."""
+    from tpu3dtk_torch.models import graphslam as tgs
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+
+    world, target, T_true = _pair(rng)
+    pts = torch.stack([torch.as_tensor(world), ticp._chain_transform(
+        torch.as_tensor(T_true, dtype=torch.float32), torch.as_tensor(target))])
+    masks = torch.ones(pts.shape[:2], dtype=torch.bool)
+    links = np.asarray([[0, 1]])
+    spec = ncl.cell_list_spec(pts.reshape(-1, 3), 25.0)
+    assert spec is not None
+    assert not tgs.link_covariances_chained(pts, masks, links, 625.0, spec)[3]
+    far = pts.clone()
+    far[1, 7] += 1e5  # far outside the box
+    assert tgs.link_covariances_chained(far, masks, links, 625.0, spec)[3]
+    masks[1, 7] = False
+    assert not tgs.link_covariances_chained(far, masks, links, 625.0, spec)[3]
 
 
 def test_chain_update_freezes_pose_once_done(rng):

@@ -66,18 +66,19 @@ def _build_both(model, mmask, spec, max_dist):
         jnp.float32(max_dist), dims=spec["dims"], RB=spec["RB"], perm=perm,
     )
     tclm, toob = ncl.build_cell_list_model(
-        _t(model), _t(mmask), spec["origin"], max_dist,
-        dims=spec["dims"], RB=spec["RB"], perm=perm,
+        _t(model), _t(mmask), spec["origin"], max_dist, dims=spec["dims"], perm=perm,
     )
     return jclm, int(joob), tclm, int(toob)
 
 
-def _chained_both(q, qmask, jclm, tclm, spec, md2, **over):
-    kw = dict(dims=spec["dims"], RB=spec["RB"], chunk=spec["chunk"],
-              perm=tuple(spec["perm"]), cap_over=spec["cap_over"])
-    kw.update(over)
+def _chained_both(q, qmask, jclm, tclm, spec, md2):
+    """The JAX chain with the spec's RB clamp and lane, the port's chain
+    (which has neither) on the same spec: (idx, d2, found, overflow, oob)
+    and (idx, d2, found, oob) as numpy."""
+    kw = dict(dims=spec["dims"], chunk=spec["chunk"], perm=tuple(spec["perm"]))
     jout = npl.nn_cell_list_chained(
-        jnp.asarray(q), jnp.asarray(qmask), jclm, jnp.float32(md2), **kw
+        jnp.asarray(q), jnp.asarray(qmask), jclm, jnp.float32(md2),
+        RB=spec["RB"], cap_over=spec["cap_over"], **kw,
     )
     tout = ncl.nn_cell_list_chained(_t(q), _t(qmask), tclm, md2, **kw)
     return [np.asarray(x) for x in jout], [x.numpy() for x in tout]
@@ -203,7 +204,10 @@ def test_cell_list_spec_sizes_nothing_by_the_grid(rng):
 
 @pytest.mark.parametrize("kind", ["uniform", "city"])
 def test_model_and_plan_equal_jax(rng, kind):
-    """build_cell_list_model and cell_list_plan_device entry for entry."""
+    """build_cell_list_model and cell_list_plan_device entry for entry:
+    the port's sorted model is the JAX package's first M rows (no pad
+    rows), its plan the JAX plan's table, sorted queries, order and
+    box-exit count."""
     if kind == "uniform":
         model = rng.uniform(0, 500, (3000, 3)).astype(np.float32)
         max_dist = 25.0
@@ -221,23 +225,24 @@ def test_model_and_plan_equal_jax(rng, kind):
     assert joob == toob == 0
     np.testing.assert_array_equal(tclm.msrc.numpy(), np.asarray(jclm.msrc))
     np.testing.assert_array_equal(tclm.cell_start.numpy(), np.asarray(jclm.cell_start))
+    assert tclm.model_sorted.shape == (M, 4)
     np.testing.assert_array_equal(
-        tclm.model_sorted.numpy()[:, :3], np.asarray(jclm.model_sorted)[:3].T
+        tclm.model_sorted.numpy()[:, :3], np.asarray(jclm.model_sorted)[:3, :M].T
     )
     assert not tclm.model_sorted.numpy()[:, 3].any()
     assert tclm.cell == float(jclm.cell)
     perm = tuple(spec["perm"])
-    jt, jq, jorder, jmax, joobq = npl.cell_list_plan_device(
+    jt, jq, jorder, _jmax, joobq = npl.cell_list_plan_device(
         jnp.asarray(query), jnp.asarray(qmask), jclm,
         dims=spec["dims"], chunk=spec["chunk"], perm=perm,
     )
-    tt, tq, torder, tmax, toobq = ncl.cell_list_plan_device(
+    tt, tq, torder, toobq = ncl.cell_list_plan_device(
         _t(query), _t(qmask), tclm, dims=spec["dims"], chunk=spec["chunk"], perm=perm,
     )
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(torder.numpy(), np.asarray(jorder))
     np.testing.assert_array_equal(tq.numpy()[:, :3], np.asarray(jq)[:3].T)
-    assert int(tmax) == int(jmax) and int(toobq) == int(joobq) == 0
+    assert int(toobq) == int(joobq) == 0
     assert tt.dtype == torch.int32 and tt.shape == (-(-len(query) // spec["chunk"]), 29)
 
 
@@ -255,19 +260,39 @@ def _cases(rng):
     yield "city", c, np.ones(len(c), bool), (c[::3] + rng.normal(0, 20, (len(c[::3]), 3))).astype(np.float32), np.ones(len(c[::3]), bool), 150.0
 
 
-@pytest.mark.parametrize("case", ["masked_sparse", "chained_6000x2000", "city"])
+@pytest.mark.parametrize(
+    "case", ["masked_sparse", "chained_6000x2000", "city", "long_ranges"]
+)
 def test_chained_matches_oracle_and_jax(rng, case):
-    name, m, mmask, q, qmask, max_dist = next(c for c in _cases(rng) if c[0] == case)
-    md2 = max_dist**2
-    spec = npl.cell_list_spec(m[mmask], max_dist, queries=[q])
+    """The chain the engines run (the table as planned, no clamp, no
+    lane): exact against the f64 oracle and the port's brute engine; the
+    JAX chain (with its RB clamp and lane) within its rank bound;
+    ``nn_cell_list`` gives the same answers; on the CPU no K2 launch.
+    "long_ranges": the JAX chain at RB = 128, far below the chunks'
+    candidate ranges, so its lane repairs the chunks beyond it; the port
+    ranks those ranges as they are."""
+    if case == "long_ranges":
+        m, mmask, q, qmask, spec = _overflow_setup(rng)
+        max_dist = 25.0
+        spec = dict(spec, RB=128, cap_over=32768)
+    else:
+        _, m, mmask, q, qmask, max_dist = next(c for c in _cases(rng) if c[0] == case)
+        spec = npl.cell_list_spec(m[mmask], max_dist, queries=[q])
     assert spec is not None
+    md2 = max_dist**2
     jclm, _, tclm, _ = _build_both(m, mmask, spec, max_dist)
     launches = nn_cell_list_cuda.cell_list_rows_kernel.launches
-    (jidx, jd2, jfound, jovf, joob), (tidx, td2, tfound, tovf, toob) = _chained_both(
+    (jidx, jd2, jfound, jovf, joob), (tidx, td2, tfound, toob) = _chained_both(
         q, qmask, jclm, tclm, spec, md2
     )
     assert nn_cell_list_cuda.cell_list_rows_kernel.launches == launches  # CPU: plain K2
-    assert not tovf and int(toob) == 0 and not jovf and int(joob) == 0
+    assert int(toob) == 0 and not jovf and int(joob) == 0
+    if case == "long_ranges":
+        table = ncl.cell_list_plan_device(
+            _t(q), _t(qmask), tclm, dims=spec["dims"], chunk=spec["chunk"],
+            perm=tuple(spec["perm"]),
+        )[0]
+        assert int((table[:, 3::3] + table[:, 4::3]).max()) > 2 * spec["RB"]
     oidx, od2, ofound = _oracle(q, qmask, m, mmask, md2)
     np.testing.assert_array_equal(tfound, ofound)
     np.testing.assert_array_equal(tidx[ofound], oidx[ofound])
@@ -283,64 +308,44 @@ def test_chained_matches_oracle_and_jax(rng, case):
     ext = float(np.ptp(m[mmask], axis=0).max())
     gap = jd2[both] - td2[both]
     assert gap.min() > -1e-2 and gap.max() < 2.0 * 1.2e-5 * ext**2
-    # the host-planned form gives the same answers
+    # nn_cell_list on the numpy clouds gives the same answers
     hidx, hd2, hfound = ncl.nn_cell_list(m, mmask, q, qmask, md2, device="cpu")
     np.testing.assert_array_equal(hfound, ofound)
     np.testing.assert_array_equal(hidx[ofound], oidx[ofound])
     np.testing.assert_allclose(hd2[ofound], od2[ofound], rtol=1e-5, atol=1e-4)
+    assert nn_cell_list_cuda.cell_list_rows_kernel.launches == launches
 
 
-@pytest.mark.parametrize("case", ["masked_sparse", "chained_6000x2000", "city", "rb128"])
-def test_chained_without_rb_matches_oracle_and_jax(rng, monkeypatch, case):
-    """``RB=None``, the route the engines take: the unclamped table, no
-    lane, ``overflow`` false; exact against the f64 oracle and the port's
-    brute engine, the JAX chain (with its RB and lane) within its rank
-    bound.  "rb128": a model built for RB = 128, where the RB route needs
-    the lane for every chunk; here nothing is clamped."""
-    if case == "rb128":
-        m, mmask, q, qmask, spec = _overflow_setup(rng)
-        max_dist, build_spec = 25.0, dict(spec, RB=128)
-    else:
-        _, m, mmask, q, qmask, max_dist = next(c for c in _cases(rng) if c[0] == case)
-        spec = npl.cell_list_spec(m[mmask], max_dist, queries=[q])
-        build_spec = spec
-    md2 = max_dist**2
-    jclm, _, _, _ = _build_both(m, mmask, spec, max_dist)
-    _, _, tclm, _ = _build_both(m, mmask, build_spec, max_dist)
-    kw = dict(dims=spec["dims"], chunk=spec["chunk"], perm=tuple(spec["perm"]))
+def test_nn_cell_list_over_max_cells_answers_through_brute(rng, monkeypatch):
+    """A grid over ``max_cells``: no spec fits, so ``nn_cell_list``
+    answers through the brute engine, exact against the oracle; without
+    the far point the chain answers and the brute engine is not called."""
+    m = rng.uniform(0, 100, (600, 3)).astype(np.float32)
+    mmask = rng.uniform(size=600) > 0.2
+    q = (m[rng.integers(0, 600, 300)] + rng.normal(0, 0.3, (300, 3))).astype(np.float32)
+    qmask = rng.uniform(size=300) > 0.1
     calls = []
-    with monkeypatch.context() as mp:
-        mp.setattr(ncl, "_overflow_lane", lambda *a, **k: calls.append(1))
-        tidx, td2, tfound, tovf, toob = (
-            x.numpy() for x in ncl.nn_cell_list_chained(
-                _t(q), _t(qmask), tclm, md2, RB=None, **kw)
-        )
-    assert not calls and tovf.dtype == bool and not tovf and int(toob) == 0
-    oidx, od2, ofound = _oracle(q, qmask, m, mmask, md2)
-    np.testing.assert_array_equal(tfound, ofound)
-    np.testing.assert_array_equal(tidx[ofound], oidx[ofound])
-    np.testing.assert_allclose(td2[ofound], od2[ofound], rtol=1e-5, atol=1e-4)
-    bidx, bd2, bfound = tnn.nn_brute(_t(q), _t(qmask), _t(m), _t(mmask), md2)
-    np.testing.assert_array_equal(tfound, bfound.numpy())
-    np.testing.assert_array_equal(tidx[tfound], bidx.numpy()[tfound])
-    np.testing.assert_array_equal(td2[tfound], bd2.numpy()[tfound])
-    jidx, jd2, jfound, jovf, joob = (
-        np.asarray(x) for x in npl.nn_cell_list_chained(
-            jnp.asarray(q), jnp.asarray(qmask), jclm, jnp.float32(md2),
-            RB=spec["RB"], cap_over=spec["cap_over"], **kw)
-    )
-    assert not jovf and int(joob) == 0
-    assert (jfound == tfound).mean() >= 0.999
-    both = jfound & tfound
-    ext = float(np.ptp(m[mmask], axis=0).max())
-    gap = jd2[both] - td2[both]
-    assert gap.min() > -1e-2 and gap.max() < 2.0 * 1.2e-5 * ext**2
-    # the RB route of the port on the same model: the same answers
-    ridx, rd2, rfound, rovf, _ = ncl.nn_cell_list_chained(
-        _t(q), _t(qmask), tclm, md2, RB=build_spec["RB"], cap_over=32768, **kw)
-    assert not bool(rovf)
-    np.testing.assert_array_equal(rfound.numpy(), tfound)
-    np.testing.assert_array_equal(ridx.numpy()[tfound], tidx[tfound])
+    brute = tnn.nn_brute_auto
+
+    def spy(*a):
+        calls.append(1)
+        return brute(*a)
+
+    monkeypatch.setattr(tnn, "nn_brute_auto", spy)
+    far = m.copy()
+    far[0] = [1e6, 0.0, 0.0]  # ~10^6 cells along x: over 64 million in all
+    mmask[0] = True
+    for model, want_brute in ((far, True), (m, False)):
+        assert (ncl.cell_list_spec([model[mmask], q[qmask]], 1.0, device="cpu") is None) is want_brute
+        calls.clear()
+        idx, d2, found = ncl.nn_cell_list(model, mmask, q, qmask, 1.0, device="cpu")
+        assert bool(calls) is want_brute
+        oidx, od2, ofound = _oracle(q, qmask, model, mmask, 1.0)
+        assert ofound.sum() > 100
+        np.testing.assert_array_equal(found, ofound)
+        np.testing.assert_array_equal(idx[ofound], oidx[ofound])
+        np.testing.assert_allclose(d2[ofound], od2[ofound], rtol=1e-5, atol=1e-5)
+        assert d2.dtype == np.float32 and found.dtype == bool
 
 
 def _work_items_ref(table, model_rows, item_rows):
@@ -409,8 +414,8 @@ def test_work_items_on_a_planned_table(rng):
 
 
 def test_boundary_exclusion():
-    """Strict d² < max_dist2 (tests/test_nn_pallas.py:53-60), through the
-    host-planned and the chained form."""
+    """Strict d² < max_dist2 (tests/test_nn_pallas.py:53-60), through
+    ``nn_cell_list`` and the chain."""
     m = np.asarray([[10.0, 0.0, 0.0]], np.float32)
     q = np.asarray([[0.0, 0.0, 0.0]], np.float32)
     one = np.ones(1, bool)
@@ -422,14 +427,14 @@ def test_boundary_exclusion():
         spec = ncl.cell_list_spec([m, q], float(np.sqrt(md2)), device="cpu")
         clm, _ = ncl.build_cell_list_model(
             _t(m), _t(one), spec["origin"], float(np.sqrt(md2)),
-            dims=spec["dims"], RB=spec["RB"], perm=spec["perm"],
+            dims=spec["dims"], perm=spec["perm"],
         )
-        _, d2, found, ovf, oob = ncl.nn_cell_list_chained(
-            _t(q), _t(one), clm, md2, dims=spec["dims"], RB=spec["RB"],
+        _, d2, found, oob = ncl.nn_cell_list_chained(
+            _t(q), _t(one), clm, md2, dims=spec["dims"],
             chunk=spec["chunk"], perm=spec["perm"],
         )
         assert bool(found[0]) is want and float(d2[0]) == 100.0
-        assert not bool(ovf) and int(oob) == 0
+        assert int(oob) == 0
 
 
 def _overflow_setup(rng):
@@ -440,70 +445,12 @@ def _overflow_setup(rng):
     return model, np.ones(M, bool), query, np.ones(Q, bool), spec
 
 
-def test_forced_overflow_repaired_by_lane(rng):
-    """RB far below the chunks' requirement: every range is clamped, the
-    lane (brute) repairs the flagged queries, and the answers stay exact
-    in both packages."""
-    m, mmask, q, qmask, spec = _overflow_setup(rng)
-    assert spec["RB"] > 128
-    small = dict(spec, RB=128)
-    jclm, _, tclm, _ = _build_both(m, mmask, small, 25.0)
-    table, _qs, order, maxlen, _ = ncl.cell_list_plan_device(
-        _t(q), _t(qmask), tclm, dims=spec["dims"], chunk=spec["chunk"],
-        perm=tuple(spec["perm"]),
-    )
-    assert int(maxlen) > 128  # the clamp bites
-    (jidx, jd2, jfound, jovf, _), (tidx, td2, tfound, tovf, _) = _chained_both(
-        q, qmask, jclm, tclm, small, 625.0
-    )
-    assert not tovf and not jovf  # within the lane's capacity
-    oidx, od2, ofound = _oracle(q, qmask, m, mmask, 625.0)
-    np.testing.assert_array_equal(tfound, ofound)
-    np.testing.assert_array_equal(tidx[ofound], oidx[ofound])
-    assert (jfound == tfound).mean() >= 0.999
-    # without the lane the clamped kernel alone misses neighbours
-    tc = ncl.clamp_table(table, 128)
-    rows, _ = ncl.cell_list_rows(tc, _qs, tclm.model_sorted, spec["chunk"])
-    _, _, f0 = ncl.cell_list_post_device(rows, order, _t(q), _t(qmask), tclm, 625.0)
-    assert (f0.numpy() != ofound).any()
-    # and on the unclamped table it needs no lane
-    rows, _ = ncl.cell_list_rows(table, _qs, tclm.model_sorted, spec["chunk"])
-    _, _, fu = ncl.cell_list_post_device(rows, order, _t(q), _t(qmask), tclm, 625.0)
-    np.testing.assert_array_equal(fu.numpy(), ofound)
-
-
-def test_lane_capacity_exceeded_sets_overflow(rng):
-    m, mmask, q, qmask, spec = _overflow_setup(rng)
-    small = dict(spec, RB=128)
-    jclm, _, tclm, _ = _build_both(m, mmask, small, 25.0)
-    (_, _, _, jovf, _), (_, _, _, tovf, _) = _chained_both(
-        q, qmask, jclm, tclm, small, 625.0, cap_over=256
-    )
-    assert bool(tovf) and bool(jovf)
-
-
-def test_idle_lane_changes_nothing(rng):
-    """On the card the lane runs every call; with no query flagged it
-    must leave the answers as they are."""
-    m, mmask, q, qmask, spec = _overflow_setup(rng)
-    _, _, tclm, _ = _build_both(m, mmask, spec, 25.0)
-    idx, d2, found, _, _ = ncl.nn_cell_list_chained(
-        _t(q), _t(qmask), tclm, 625.0, dims=spec["dims"], RB=spec["RB"],
-        chunk=spec["chunk"], perm=tuple(spec["perm"]),
-    )
-    none = torch.zeros(len(q), dtype=torch.bool)
-    i2, d22, f2 = ncl._lane_fix(
-        none, _t(q), idx.clone(), d2.clone(), found.clone(), tclm, 625.0, 8192
-    )
-    assert torch.equal(i2, idx) and torch.equal(d22, d2) and torch.equal(f2, found)
-
-
 def test_query_outside_box_counts_oob(rng):
     m, mmask, q, qmask, spec = _overflow_setup(rng)
     q = q.copy()
     q[:7] += 1e5  # far outside the grid box
     jclm, _, tclm, _ = _build_both(m, mmask, spec, 25.0)
-    (_, _, jfound, _, joob), (_, _, tfound, _, toob) = _chained_both(
+    (_, _, jfound, _, joob), (_, _, tfound, toob) = _chained_both(
         q, qmask, jclm, tclm, spec, 625.0
     )
     assert int(toob) == int(joob) == 7
@@ -525,10 +472,10 @@ def test_all_masked_model_and_empty_ranges(rng):
     qmask = np.ones(500, bool)
     none = np.zeros(len(m), bool)
     jclm, _, tclm, _ = _build_both(m, none, spec, 25.0)
-    (_, _, jfound, _, _), (_, td2, tfound, tovf, toob) = _chained_both(
+    (_, _, jfound, _, _), (_, td2, tfound, toob) = _chained_both(
         q, qmask, jclm, tclm, spec, 625.0
     )
-    assert not tfound.any() and not tovf and int(toob) == 0
+    assert not tfound.any() and int(toob) == 0
     assert np.isfinite(td2).all()
     _, _, hfound = ncl.nn_cell_list(m, none, q, qmask, 625.0, device="cpu")
     assert not hfound.any()
@@ -544,9 +491,9 @@ def test_all_masked_model_and_empty_ranges(rng):
         chunk=spec["chunk"], perm=tuple(spec["perm"]),
     )[0]
     assert int(rows_before[:, 4::3].sum()) == 0
-    _, _, f2, _, _ = ncl.nn_cell_list_chained(
+    _, _, f2, _ = ncl.nn_cell_list_chained(
         _t(q2), _t(np.ones(300, bool)), tclm2, 625.0, dims=spec["dims"],
-        RB=spec["RB"], chunk=spec["chunk"], perm=tuple(spec["perm"]),
+        chunk=spec["chunk"], perm=tuple(spec["perm"]),
     )
     assert not f2.any()
 
@@ -554,7 +501,7 @@ def test_all_masked_model_and_empty_ranges(rng):
 def test_plain_k2_contract(rng):
     """cell_list_rows on a hand-made table: rows are start + shift + j,
     the earliest range wins ties, an empty chunk keeps row 0 and +inf."""
-    model = torch.full((512, 4), ncl.PAD_COORD)
+    model = torch.full((512, 4), 1e30)
     model[:, 3] = 0
     pts = torch.arange(300, dtype=torch.float32)
     model[:300, 0] = pts
@@ -591,7 +538,7 @@ def test_jax_cell_list_state_carries_over(rng):
     for k in ("points", "mmask", "model_sorted", "msrc", "cell_start", "origin"):
         assert torch.equal(getattr(clm2, k), getattr(tclm, k)), k
     assert clm2.cell == tclm.cell
-    kw = dict(dims=spec2["dims"], RB=spec2["RB"], chunk=spec2["chunk"], perm=spec2["perm"])
+    kw = dict(dims=spec2["dims"], chunk=spec2["chunk"], perm=spec2["perm"])
     a = ncl.nn_cell_list_chained(_t(q), _t(qmask), clm2, 625.0, **kw)
     b = ncl.nn_cell_list_chained(_t(q), _t(qmask), tclm, 625.0, **kw)
     for x, y in zip(a, b):

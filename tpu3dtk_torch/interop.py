@@ -359,11 +359,14 @@ def _cell_list_from_numpy(state: Mapping, device) -> tuple[CellListModel, dict]:
     """``state``: {"clm": the JAX CellListModel's fields as numpy
     (``model_sorted`` in its [8, Mpad] transposed layout), "spec": the
     JAX cell_list_spec dict}.  Returns the port's model on ``device``
-    (sorted coordinates as [Mpad, 4]) and spec."""
+    and spec: the sorted coordinates as [max(M, 1), 4], the rows
+    ``build_cell_list_model`` makes (the JAX package's pad rows, which
+    no range reaches, are dropped)."""
     c = state["clm"]
     ms = np.asarray(c["model_sorted"], np.float32)
-    ms4 = np.zeros((ms.shape[1], 4), np.float32)
-    ms4[:, :3] = ms[:3].T
+    M = len(c["msrc"])
+    ms4 = np.zeros((max(M, 1), 4), np.float32)
+    ms4[:M, :3] = ms[:3, :M].T
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)

@@ -284,8 +284,9 @@ def link_covariances_chained(points_g, masks, links, max_dist2, spec):
 
     ``spec`` comes from ``ops.nn_cell_list.cell_list_spec`` sized over
     the whole sequence's global clouds.  Returns numpy (C [L,6,6], CD
-    [L,6], m [L], guard_fired: bool) — on guard (lane overflow /
-    out-of-box) the caller should retry with a larger-headroom spec.
+    [L,6], m [L], guard_fired: bool) — when a point of a link's model or
+    target lies outside the grid box the caller should retry with a
+    larger-headroom spec.
     """
     from ..ops import nn_cell_list as ncl
 
@@ -303,18 +304,17 @@ def link_covariances_chained(points_g, masks, links, max_dist2, spec):
         if i not in models:
             models[i] = ncl.build_cell_list_model(
                 points_g[i], masks[i], spec["origin"], max_dist,
-                dims=spec["dims"], RB=spec["RB"], perm=perm,
+                dims=spec["dims"], perm=perm,
             )
         clm, oob_m = models[i]
-        # RB=None: unclamped table, no overflow lane (see icp_pair_chained)
-        idx, _d2, found, overflow, oob_q = ncl.nn_cell_list_chained(
+        idx, _d2, found, oob_q = ncl.nn_cell_list_chained(
             points_g[j], masks[j], clm, md2,
-            dims=spec["dims"], RB=None, chunk=spec["chunk"], perm=perm,
+            dims=spec["dims"], chunk=spec["chunk"], perm=perm,
         )
         metrics.count(CHAINED_LINK_CALLS)
         C, CD, m = lum_pair_stats(points_g[i][idx], points_g[j], found)
         packed.append(torch.cat([C.reshape(36), CD, m[None]]))
-        guards.append(overflow.to(torch.int32) + oob_q + oob_m)
+        guards.append(oob_q + oob_m)
     L = len(packed)
     guard = torch.stack(guards).sum().to(torch.float32)
     flat = torch.cat([torch.stack(packed).reshape(-1), guard[None]])
@@ -612,8 +612,8 @@ def _do_graph_slam_host(
                     chain_spec,
                 )
                 if guard:
-                    # lane overflow / box exit: re-spec from the CURRENT
-                    # global clouds with double headroom
+                    # box exit: re-spec from the CURRENT global clouds
+                    # with double headroom
                     clouds = [
                         points_g[i][masks_t[i]] for i in range(len(scans))
                     ]

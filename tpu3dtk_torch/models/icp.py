@@ -93,9 +93,9 @@ class IcpResult(NamedTuple):
     error: float  # final RMS point-to-point error (f64)
     iterations: int  # iterations executed
     n_pairs: float  # pairs in the last iteration
-    # chained engine only: > 0 when a cell-list exactness guard fired
-    # (lane overflow or a point outside the grid box) and the caller
-    # must redo the match with the brute engine
+    # chained engine only: > 0 when the cell-list exactness guard fired
+    # (a point outside the grid box) and the caller must redo the match
+    # with the brute engine
     maxocc: int = 0
 
 
@@ -517,10 +517,10 @@ def icp_pair_chained(
     done flag only every ``check_every`` iterations, so the
     per-iteration NN cost is O(Q · occupancy) instead of O(Q · M).
 
-    Exactness guards: the per-iteration out-of-grid-box scalars (and
-    the lane-overflow scalar, constantly false on the unclamped route
-    taken here) accumulate on the device; if one fired, the caller must
-    redo the match with the brute engine (returned via ``maxocc`` > 0).
+    Exactness guard: the model's and each iteration's out-of-grid-box
+    counts accumulate on the device; if a point left the box, the caller
+    must redo the match with the brute engine (returned via ``maxocc`` >
+    0).
     ``spec`` comes from ``ops.nn_cell_list.cell_list_spec``; without one
     it is sized over the model, and the brute engine runs when no spec
     fits.  The ``napx`` minimizer needs normals, which this engine does
@@ -548,7 +548,7 @@ def icp_pair_chained(
     perm = tuple(spec.get("perm", (0, 1, 2)))
     clm, oob_m = ncl.build_cell_list_model(
         model, mmask, spec["origin"], max_dist,
-        dims=spec["dims"], RB=spec["RB"], perm=perm,
+        dims=spec["dims"], perm=perm,
     )
     md2 = float(np.float32(max_dist_match2))
     guard = torch.zeros((), dtype=torch.int32, device=dev)
@@ -562,17 +562,15 @@ def icp_pair_chained(
     eps = float(epsilon)
     for it in range(max_iterations):
         tgt_g = _chain_transform(T, target_local)
-        # RB=None: this card's K2 walks ranges of any length, so the table
-        # is not clamped and no overflow lane runs
-        idx, _d2, found, overflow, oob_q = ncl.nn_cell_list_chained(
-            tgt_g, tmask, clm, md2, dims=spec["dims"], RB=None,
+        idx, _d2, found, oob_q = ncl.nn_cell_list_chained(
+            tgt_g, tmask, clm, md2, dims=spec["dims"],
             chunk=spec.get("chunk", 256), perm=perm,
         )
         metrics.count(CHAINED_TRIPS)
         T, conv, npairs = _chain_update_conv(
             model, idx, found, tgt_g, T, conv, eps, align_fn
         )
-        guard = torch.maximum(guard, overflow.to(torch.int32) + oob_q + oob_m)
+        guard = torch.maximum(guard, oob_q + oob_m)
         if (it + 1) % check_every == 0 or it == max_iterations - 1:
             # the one device->host read of these check_every iterations
             done, guard_v = torch.stack([conv[3].to(torch.int32), guard]).tolist()

@@ -12,8 +12,9 @@ loop of ``models.icp``.  Two NN engines, as in the JAX package:
   ``icp.register_sequence_device``;
 - the chained cell-list engine (K2, ``icp.icp_pair_chained``) for model
   windows of ``chained_min`` points or more, when a cell-list spec fits
-  and its candidate volume beats brute (9·RB < window points).  A match
-  whose exactness guard fired is redone with the brute engine.
+  and its candidate volume beats brute (9·RB < window points; RB is the
+  JAX package's TPU sizing, which the port keeps as this gate only).  A
+  match whose grid-box guard fired is redone with the brute engine.
 
 The JAX package gates the chained engine on a TPU backend; the port
 gates on the sizes alone, so the CPU tests run it through the plain

@@ -16,8 +16,7 @@ Design, as in the JAX package (sort-based, no pointer chasing):
 Counterparts in ``tpu3dtk/ops/nn_pallas.py``: :func:`cell_list_spec`
 (``cell_list_spec``), :class:`CellListModel`, :func:`_dense_ids`,
 :func:`build_cell_list_model`, :func:`cell_list_plan_device`,
-:func:`cell_list_post_device`, :func:`_overflow_lane`,
-:func:`nn_cell_list_chained`, :func:`plan_cell_list`,
+:func:`cell_list_post_device`, :func:`nn_cell_list_chained`,
 :func:`nn_cell_list`.  :func:`cell_list_rows` is the plain PyTorch
 version of K2 (``_run_kernel``); the hand-written CUDA kernel is
 ``ops/nn_cell_list_cuda.py``, and :func:`cell_list_rows_auto` picks
@@ -34,16 +33,14 @@ What differs from the JAX package, on purpose:
   ``start + shift``;
 - a winner that is a masked model point is reported "not found" (the
   JAX package does not test the winner's mask);
-- :func:`_overflow_lane` has no device-side branch to lean on: on the
-  card the lane always runs (no host read inside the chain), on the CPU
-  it runs when the overflow count, free to read there, is not zero.  The
-  results are the same either way;
-- the static width RB is the TPU kernel's need, not this card's: K2 here
-  walks a range of any length and shares long chunks out over the card
-  (:func:`cell_list_work_items`), so :func:`nn_cell_list_chained` with
-  ``RB=None`` ranks the unclamped table and runs no lane.  That is the
-  route the ICP and LUM engines take; the clamp and the lane stay
-  reachable through an integer ``RB``;
+- there is no RB route: the static width RB is the TPU kernel's need,
+  not this card's.  K2 here walks a range of any length and shares long
+  chunks out over the card (:func:`cell_list_work_items`), so
+  :func:`nn_cell_list_chained` ranks the table as planned: no clamp, no
+  overflow lane, no pad rows behind the sorted model, and the grid-box
+  exit is the only exactness guard;
+- there is no host planner: :func:`nn_cell_list` runs the spec, the
+  model build and the chain the ICP and LUM engines run;
 - :func:`cell_list_spec` runs on the tensors' device by sort and search:
   one sort of every cloud's cell ids, the per-chunk requirements of
   every pair as searches on it, no array sized by the grid's cell count
@@ -64,13 +61,12 @@ from . import nn as nn_ops
 __all__ = [
     "CellListModel", "build_cell_list_model", "cell_list_plan_device",
     "cell_list_post_device", "cell_list_rows", "cell_list_rows_auto",
-    "cell_list_spec", "cell_list_work_items", "clamp_table", "nn_cell_list",
-    "nn_cell_list_chained", "plan_cell_list",
+    "cell_list_spec", "cell_list_work_items", "nn_cell_list",
+    "nn_cell_list_chained",
 ]
 
 INF = float("inf")
 CELL_LIST_SPEC = "cell_list_spec_time"  # metrics timer: cell_list_spec, to its last read
-PAD_COORD = 1e30  # coordinates of the sorted model's pad rows
 # plain K2: [chunks, T, columns] scores per tile (256 MB of f32)
 _TILE_ELEMS = 1 << 26
 _TILE_CHUNKS = 64
@@ -182,153 +178,12 @@ def cell_list_rows_auto(table, q_sorted, model_sorted, chunk: int):
 
 
 # ---------------------------------------------------------------------------
-# Host-planned cell list (one plan per (model, query) pair)
-# ---------------------------------------------------------------------------
-
-
-def plan_cell_list(model, mmask, query, qmask, max_dist, chunk=256):
-    """Host-side plan: sort both clouds by cell id and build the
-    per-chunk table.  Returns a dict of numpy arrays and static metadata
-    (RB, chunk, W, Q).  numpy math: runs once per (model, query) pair."""
-    model = np.asarray(model, np.float32)
-    query = np.asarray(query, np.float32)
-    mmask = np.asarray(mmask)
-    qmask = np.asarray(qmask)
-    cell = float(max_dist)
-    valid_m = model[mmask]
-    valid_q = query[qmask]
-    lo = np.minimum(
-        valid_m.min(0) if len(valid_m) else np.zeros(3),
-        valid_q.min(0) if len(valid_q) else np.zeros(3),
-    ).astype(np.float32)
-    origin = lo - cell  # one-cell margin so ids stay >= nz inside
-    ext = (
-        np.maximum(
-            valid_m.max(0) if len(valid_m) else np.zeros(3),
-            valid_q.max(0) if len(valid_q) else np.zeros(3),
-        )
-        - origin
-    )
-    nx, ny, nz = (int(np.ceil(e / cell)) + 2 for e in ext)
-    C = nx * ny * nz
-
-    def cell_ids(pts, mask):
-        ij = np.floor((pts - origin) / cell).astype(np.int64)
-        ij = np.clip(ij, 0, np.array([nx - 1, ny - 1, nz - 1]))
-        ids = (ij[:, 0] * ny + ij[:, 1]) * nz + ij[:, 2]
-        ids[~mask] = C  # sentinel: sorts last
-        return ids
-
-    mid = cell_ids(model, mmask)
-    morder = np.argsort(mid, kind="stable")
-    mid_s = mid[morder]
-    model_s = model[morder]
-    cell_start = np.searchsorted(mid_s, np.arange(C + 1))
-
-    qid = cell_ids(query, qmask)
-    qorder = np.argsort(qid, kind="stable")
-    qid_s = qid[qorder]
-    Q = len(query)
-    W = _cdiv(Q, chunk)
-
-    offs = _neighbour_offsets(ny, nz)
-    table = np.zeros((W, 2 + 27), np.int32)
-    rb = 1
-    M = len(model)
-    for w in range(W):
-        a, b = w * chunk, min((w + 1) * chunk, Q)
-        ids = qid_s[a:b]
-        ids = ids[ids < C]
-        table[w, 0] = a
-        table[w, 1] = len(ids)
-        if len(ids) == 0:
-            continue
-        lo_id, hi_id = int(ids[0]), int(ids[-1])
-        for r, off in enumerate(offs):
-            s_id = max(0, lo_id + off - 1)
-            e_id = min(C, hi_id + off + 2)
-            if s_id >= C or e_id <= 0 or s_id >= e_id:
-                continue
-            rs = int(cell_start[s_id])
-            re = int(cell_start[e_id])
-            rs_al = (rs // 128) * 128
-            table[w, 2 + 3 * r] = rs_al
-            table[w, 3 + 3 * r] = rs - rs_al  # shift within the slice
-            table[w, 4 + 3 * r] = re - rs  # true length
-            rb = max(rb, (re - rs) + (rs - rs_al))
-
-    RB = _round_up(max(rb, 128), 128)
-    Mpad = _round_up(M + RB + 128, 128)
-    model_pad = np.zeros((Mpad, 4), np.float32)
-    model_pad[:M, :3] = model_s
-    model_pad[M:, :3] = PAD_COORD
-    qpad = _round_up(max(Q, 1), chunk)
-    query_pad = np.zeros((qpad, 4), np.float32)
-    query_pad[:Q, :3] = query[qorder]
-    return {
-        "model_sorted": model_pad,
-        "msrc": morder.astype(np.int32),
-        "query_sorted": query_pad,
-        "qorder": qorder.astype(np.int32),
-        "table": table,
-        "RB": int(RB),
-        "chunk": int(chunk),
-        "W": int(W),
-        "Q": Q,
-    }
-
-
-def nn_cell_list(model, mmask, query, qmask, max_dist2, chunk: int = 256,
-                 device=None):
-    """Grid NN through a host plan and K2.  Same contract as
-    ``ops.nn.nn_brute``: numpy in, numpy out (idx [Q] into ``model``, d2
-    [Q] f32, found [Q] bool with strict d2 < max_dist2).  K2 runs on
-    ``device`` (the package default when None)."""
-    if device is None:
-        from .. import default_device
-
-        device = default_device()
-    model = np.asarray(model, np.float32)
-    mmask = np.asarray(mmask)
-    max_dist = float(np.sqrt(max_dist2))
-    plan = plan_cell_list(model, mmask, query, qmask, max_dist, chunk)
-    Q = plan["Q"]
-    M = model.shape[0]
-    if Q == 0:
-        return (np.zeros(0, np.int32), np.zeros(0, np.float32),
-                np.zeros(0, bool))
-    rows, _score = cell_list_rows_auto(
-        torch.as_tensor(plan["table"], device=device),
-        torch.as_tensor(plan["query_sorted"], device=device),
-        torch.as_tensor(plan["model_sorted"], device=device),
-        plan["chunk"],
-    )
-    rows = rows.cpu().numpy()[:Q]
-    rows_c = np.clip(rows, 0, M - 1)
-    idx_sorted_space = plan["msrc"][rows_c]
-    # exact recompute in original coordinates (host numpy f64)
-    qs = plan["query_sorted"][:Q, :3].astype(np.float64)
-    diff = qs - model.astype(np.float64)[idx_sorted_space]
-    d2x = np.einsum("ij,ij->i", diff, diff).astype(np.float32)
-    found_sorted = (d2x < max_dist2) & (rows < M) & mmask[idx_sorted_space]
-    qorder = plan["qorder"]
-    inv = np.zeros(Q, np.int64)
-    inv[qorder] = np.arange(Q)
-    idx = idx_sorted_space[inv]
-    d2 = d2x[inv]
-    found = found_sorted[inv] & np.asarray(qmask)
-    return idx, d2, found
-
-
-# ---------------------------------------------------------------------------
 # Device-planned cell list: the query side re-planned every ICP iteration
 # ---------------------------------------------------------------------------
 #
-# Exactness guards (the caller re-matches with brute when either fires):
-#   - overflow: more queries than the overflow lane holds sat in chunks
-#     whose candidate range exceeded the static RB
-#   - oob: some point left the static grid box (poses drifted past the
-#     margin the spec was sized with)
+# Exactness guard (the caller re-matches with brute when it fires): oob,
+# some point left the static grid box (poses drifted past the margin the
+# spec was sized with)
 
 
 class CellListModel(NamedTuple):
@@ -336,7 +191,7 @@ class CellListModel(NamedTuple):
 
     points: torch.Tensor        # [M, 3] ORIGINAL model points (match frame)
     mmask: torch.Tensor         # [M] bool model validity mask
-    model_sorted: torch.Tensor  # [Mpad, 4] sorted, permuted coords (w = 0)
+    model_sorted: torch.Tensor  # [max(M, 1), 4] sorted, permuted coords (w = 0)
     msrc: torch.Tensor          # [M] int32 original index of each sorted row
     cell_start: torch.Tensor    # [C+1] int32 CSR over dense cell ids
     origin: torch.Tensor        # [3] f32 (permuted space)
@@ -363,12 +218,16 @@ def _dense_ids(pts, origin, cell, dims):
 
 
 def build_cell_list_model(
-    model, mmask, origin, cell, *, dims, RB: int, perm=(0, 1, 2)
+    model, mmask, origin, cell, *, dims, perm=(0, 1, 2)
 ) -> tuple[CellListModel, torch.Tensor]:
     """Model-side build, once per match.  Returns (CellListModel,
     oob_count).  ``perm``: the spec's axis permutation — binning AND the
     stored kernel coordinates run in permuted space (distances are
-    permutation-invariant); ``clm.points`` stays original."""
+    permutation-invariant); ``clm.points`` stays original.  The sorted
+    model has the model's M rows (one zero row when M = 0, so that K2
+    still launches on an empty model): every range ends at or before
+    ``cell_start[C]``, the masked-in count, and K2 and
+    :func:`cell_list_rows` clip to the rows there are."""
     nx, ny, nz = dims
     C = nx * ny * nz
     M = model.shape[0]
@@ -383,9 +242,7 @@ def build_cell_list_model(
     cell_start = torch.searchsorted(
         ids_s, torch.arange(C + 1, dtype=ids_s.dtype, device=dev)
     ).to(torch.int32)
-    Mpad = _round_up(M + RB + 128, 128)
-    ms = torch.full((Mpad, 4), PAD_COORD, dtype=torch.float32, device=dev)
-    ms[:, 3] = 0.0
+    ms = torch.zeros((max(M, 1), 4), dtype=torch.float32, device=dev)
     ms[:M, :3] = model_p[order].to(torch.float32)
     return (
         CellListModel(
@@ -405,7 +262,7 @@ def cell_list_plan_device(query, qmask, clm: CellListModel, *, dims,
                           chunk: int = 256, perm=(0, 1, 2)):
     """Query plan on the tensors' device: sort the queries by dense cell
     id and build the per-chunk table.  Returns (table [W, 29] int32,
-    q_sorted [W*chunk, 4] f32, order [N] int64, maxlen, oob_count)."""
+    q_sorted [W*chunk, 4] f32, order [N] int64, oob_count)."""
     nx, ny, nz = dims
     C = nx * ny * nz
     N = query.shape[0]
@@ -426,27 +283,16 @@ def cell_list_plan_device(query, qmask, clm: CellListModel, *, dims,
     any_valid = valid_q.any(dim=1)
     zero = torch.zeros(W, dtype=torch.int32, device=dev)
     cols = [zero, zero]  # query start and count: unused by the device plan
-    maxlen = torch.zeros((), dtype=torch.int32, device=dev)
     for off in _neighbour_offsets(ny, nz):
         rs = clm.cell_start[(lo + (off - 1)).clamp(0, C)]
         re = torch.maximum(clm.cell_start[(hi + (off + 2)).clamp(0, C)], rs)
         rs_al = (rs // 128) * 128
         shift = rs - rs_al
         ln = torch.where(any_valid, re - rs, 0)
-        maxlen = torch.maximum(maxlen, (shift + ln).max())
         cols += [rs_al, shift, ln]
     table = torch.stack(cols, dim=1).contiguous()
     oob_n = (oob & qmask).sum().to(torch.int32)
-    return table, q_s, order, maxlen, oob_n
-
-
-def clamp_table(table, RB: int):
-    """The table with every range's length clamped so that shift + length
-    stays within RB; the chunks this shortens are repaired by the
-    overflow lane afterwards."""
-    out = table.clone()
-    out[:, 4::3] = torch.minimum(table[:, 4::3], RB - table[:, 3::3]).clamp(min=0)
-    return out
+    return table, q_s, order, oob_n
 
 
 def cell_list_post_device(rows, order, query, qmask, clm: CellListModel,
@@ -465,88 +311,22 @@ def cell_list_post_device(rows, order, query, qmask, clm: CellListModel,
     return idx, d2, found
 
 
-def _lane_fix(q_over, query, idx, d2, found, clm, max_dist2, cap_over):
-    """Re-match the flagged queries (compacted to at most ``cap_over``)
-    against the whole model with the brute engine (K1 on the card) and
-    merge the answers in place."""
-    sel = torch.argsort((~q_over).to(torch.uint8), stable=True)[:cap_over]
-    sub_mask = q_over[sel]
-    idx_b, d2_b, found_b = nn_ops.nn_brute_auto(
-        query[sel].contiguous(), sub_mask, clm.points, clm.mmask, max_dist2
-    )
-    idx[sel] = torch.where(sub_mask, idx_b, idx[sel])
-    d2[sel] = torch.where(sub_mask, d2_b, d2[sel])
-    found[sel] = torch.where(sub_mask, found_b, found[sel])
-    return idx, d2, found
-
-
-def _overflow_lane(
-    table, order, query, qmask, idx, d2, found, clm: CellListModel,
-    max_dist2, *, RB: int, chunk: int, cap_over: int,
-):
-    """Exactness repair for over-budget chunks: a sorted-query chunk
-    whose candidate range exceeds the static RB had its range CLAMPED
-    for the kernel, so its queries may have missed their true NN.  This
-    lane re-matches just those queries (compacted to a ``cap_over``
-    batch) against the full model with the brute engine and merges the
-    results.
-
-    The JAX package runs the lane under a device-side branch.  Here it
-    always runs for CUDA tensors (reading the count would stall the
-    chain once per ICP iteration; an idle lane changes nothing) and only
-    when the count is not zero for CPU tensors.
-
-    Returns (idx, d2, found, n_over) — exactness holds iff
-    n_over <= cap_over (the caller's fallback guard)."""
-    N = query.shape[0]
-    req = (table[:, 3::3] + table[:, 4::3]).max(dim=1).values  # [W]
-    chunk_over = req > RB
-    # per-ORIGINAL-query overflow flag: sorted position k belongs to
-    # chunk k // chunk and original index order[k]
-    over_sorted = chunk_over.repeat_interleave(chunk)[:N]
-    q_over = torch.zeros(N, dtype=torch.bool, device=query.device)
-    q_over[order] = over_sorted
-    q_over &= qmask
-    n_over = q_over.sum()
-    if query.device.type == "cuda" or int(n_over) > 0:
-        idx, d2, found = _lane_fix(
-            q_over, query, idx, d2, found, clm, max_dist2, cap_over
-        )
-    return idx, d2, found, n_over
-
-
 def nn_cell_list_chained(query, qmask, clm: CellListModel, max_dist2,
-                         *, dims, RB: int | None, chunk: int = 256,
-                         perm=(0, 1, 2), cap_over: int = 8192):
+                         *, dims, chunk: int = 256, perm=(0, 1, 2)):
     """Cell-list NN as a chain of device ops with no host read inside
-    (for CUDA tensors).  Returns (idx, d2, found, overflow, oob) —
-    overflow/oob are DEVICE scalars the caller checks lazily.
-
-    ``RB=None``: K2 ranks the table as planned, ranges of any length; no
-    clamp, no lane, ``overflow`` is constantly false.  An integer ``RB``
-    is the JAX package's contract: ranges are clamped to it, chunks whose
-    candidate range exceeds it are repaired exactly by the brute overflow
-    lane, and ``overflow`` means the lane's capacity was exceeded and the
-    whole match must be redone with brute."""
+    (for CUDA tensors): the query plan, K2 on the table as planned
+    (ranges of any length) and the exact post.  Returns (idx, d2, found,
+    oob) — oob is a DEVICE scalar, the count of masked-in queries outside
+    the grid box, which the caller checks lazily."""
     max_dist2 = float(np.float32(max_dist2))
-    table, q_s, order, _maxlen, oob = cell_list_plan_device(
+    table, q_s, order, oob = cell_list_plan_device(
         query, qmask, clm, dims=dims, chunk=chunk, perm=tuple(perm)
     )
-    rows, _score = cell_list_rows_auto(
-        table if RB is None else clamp_table(table, RB), q_s,
-        clm.model_sorted, chunk,
-    )
+    rows, _score = cell_list_rows_auto(table, q_s, clm.model_sorted, chunk)
     idx, d2, found = cell_list_post_device(
         rows, order, query, qmask, clm, max_dist2
     )
-    if RB is None:
-        overflow = torch.zeros((), dtype=torch.bool, device=query.device)
-        return idx, d2, found, overflow, oob
-    idx, d2, found, n_over = _overflow_lane(
-        table, order, query, qmask, idx, d2, found, clm, max_dist2,
-        RB=RB, chunk=chunk, cap_over=cap_over,
-    )
-    return idx, d2, found, n_over > cap_over, oob
+    return idx, d2, found, oob
 
 
 # ---------------------------------------------------------------------------
@@ -641,7 +421,9 @@ def cell_list_spec(points, max_dist, headroom=1.5,
     columns stay at ground+facade thickness.  ``vmem_budget`` caps RB as
     in the JAX package (the TPU's scratch size; kept so that both
     packages plan alike — whether this card should keep the cap is a
-    measurement question).
+    measurement question).  In the port RB and ``cap_over`` clamp
+    nothing and size no lane: they only size the engine gate
+    (``models.sequence``) and keep the dict the JAX package's.
 
     ``points``, the sets in ``model_sets`` and ``queries`` are numpy
     arrays or tensors; ``points`` may also be a sequence of clouds, the
@@ -711,9 +493,9 @@ def cell_list_spec(points, max_dist, headroom=1.5,
         for chunk, W in zip(_SPEC_CHUNKS, widths):
             # Per-chunk candidate-range requirements against the ACTUAL
             # model sets.  RB is sized at the p99 requirement x headroom:
-            # the rare chunks that straddle slow-axis row transitions
-            # are repaired exactly by the brute overflow lane, provided
-            # their query count stays within its cap.
+            # in the JAX package the rare chunks that straddle slow-axis
+            # row transitions are repaired exactly by its brute overflow
+            # lane, provided their query count stays within its cap.
             ends = row + np.cumsum(W)
             per_pair_reqs = np.split(req_p[row:ends[-1]], ends[:-1] - row)
             row = int(ends[-1])
@@ -726,8 +508,8 @@ def cell_list_spec(points, max_dist, headroom=1.5,
                 vmem_budget // (8 * chunk + 9 * 32) // 128
             ) * 128
             RB = max(128, min(RB, rb_limit))
-            # worst single invocation's flagged queries must fit the
-            # brute overflow lane
+            # worst single invocation's flagged queries must fit the JAX
+            # package's lane
             over_q = max(
                 int((req > RB).sum()) * chunk for req in per_pair_reqs
             )
@@ -745,3 +527,47 @@ def cell_list_spec(points, max_dist, headroom=1.5,
                 best = cand
             break  # larger chunks are better at equal feasibility
     return best
+
+
+# ---------------------------------------------------------------------------
+# NN of two numpy clouds through the same chain
+# ---------------------------------------------------------------------------
+
+
+def nn_cell_list(model, mmask, query, qmask, max_dist2, chunk: int = 256,
+                 device=None):
+    """Grid NN of two numpy clouds.  Same contract as ``ops.nn.nn_brute``:
+    numpy in, numpy out (idx [Q] into ``model``, d2 [Q] f32, found [Q]
+    bool with strict d2 < max_dist2), on ``device`` (the package default
+    when None).  The spec's grid box holds the masked-in points of both
+    clouds; :func:`build_cell_list_model` and :func:`nn_cell_list_chained`
+    answer.  Where no spec fits (no masked-in point on a side, or a grid
+    over ``max_cells``) or a point is counted outside the box anyway, the
+    brute engine answers, exact too."""
+    if device is None:
+        from .. import default_device
+
+        device = default_device()
+    m = torch.as_tensor(np.asarray(model, np.float32), device=device)
+    mm = torch.as_tensor(np.asarray(mmask, bool), device=device)
+    q = torch.as_tensor(np.asarray(query, np.float32), device=device)
+    qm = torch.as_tensor(np.asarray(qmask, bool), device=device)
+    max_dist = float(np.sqrt(max_dist2))
+    m_in, q_in = m[mm], q[qm]
+    spec = None
+    if len(m_in) and len(q_in):
+        spec = cell_list_spec(
+            [m_in, q_in], max_dist, model_sets=[m_in], queries=[q_in]
+        )
+    if spec is not None:
+        perm = tuple(spec["perm"])
+        clm, oob_m = build_cell_list_model(
+            m, mm, spec["origin"], max_dist, dims=spec["dims"], perm=perm
+        )
+        out = nn_cell_list_chained(
+            q, qm, clm, max_dist2, dims=spec["dims"], chunk=chunk, perm=perm
+        )
+        if int(oob_m + out[3]) == 0:
+            return tuple(x.cpu().numpy() for x in out[:3])
+    out = nn_ops.nn_brute_auto(q, qm, m, mm, max_dist2)
+    return tuple(x.cpu().numpy() for x in out)

@@ -13,8 +13,8 @@ h468 match, 468 x 16384-point ring; the first bremen NN call, 13 x
   (``BLOCKS_PER_SM``);
 - K2 (``ops/nn_cell_list_cuda.py``): device time over the work-item
   size R (``ITEM_ROWS``) and the persistent grid's blocks per SM
-  (``BLOCKS_PER_SM``), on the table clamped to RB and on the unclamped
-  one; R = 2^20 is one item a chunk, a chunk to a block;
+  (``BLOCKS_PER_SM``), on the table as the path plans it; R = 2^20 is
+  one item a chunk, a chunk to a block;
 - the SM clock and power draw while the card ranks.
 
 Device times are two CUDA events around raw launches queued back to
@@ -148,31 +148,28 @@ def k2_sweep(dev):
     qm = prep["masks"][1].contiguous()
     perm = tuple(spec["perm"])
     clm, _oob = ncl.build_cell_list_model(
-        m.contiguous(), mm, spec["origin"], dist, dims=spec["dims"], RB=spec["RB"], perm=perm)
-    table, q_s, _order, _maxlen, _oob_q = ncl.cell_list_plan_device(
+        m.contiguous(), mm, spec["origin"], dist, dims=spec["dims"], perm=perm)
+    table, q_s, _order, _oob_q = ncl.cell_list_plan_device(
         q, qm, clm, dims=spec["dims"], chunk=spec["chunk"], perm=perm)
-    table_c = ncl.clamp_table(table, spec["RB"])
     T, W = spec["chunk"], table.shape[0]
     scratch = torch.empty(W * T + W + 2, dtype=torch.int64, device=dev)
     rows = torch.empty(W * T, dtype=torch.int32, device=dev)
     score = torch.empty(W * T, dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = {id(t): k2.cell_list_rows_kernel(t, q_s, clm.model_sorted, T)[0].clone()
-            for t in (table_c, table)}
+    want = k2.cell_list_rows_kernel(table, q_s, clm.model_sorted, T)[0].clone()
 
-    def raw_ms(tab, item_rows, bps):
+    def raw_ms(item_rows, bps):
         ms = burst_ms(lambda: k2._launch(
-            tab, q_s, clm.model_sorted, T, item_rows, sms * bps, scratch, rows, score))
-        assert torch.equal(rows, want[id(tab)]), f"K2 at R={item_rows} x {bps}/SM answers differently"
+            table, q_s, clm.model_sorted, T, item_rows, sms * bps, scratch, rows, score))
+        assert torch.equal(rows, want), f"K2 at R={item_rows} x {bps}/SM answers differently"
         return ms
 
-    print(f"K2 at the first bremen NN call, W={W} chunks of {T}, RB={spec['RB']}: device ms of "
-          f"init + items + unpack over 20 raw launches, clamped / unclamped table (the wrapper "
-          f"uses R={k2.ITEM_ROWS} x {k2.BLOCKS_PER_SM}/SM):")
+    print(f"K2 at the first bremen NN call, W={W} chunks of {T}: device ms of init + items + "
+          f"unpack over 20 raw launches (the wrapper uses R={k2.ITEM_ROWS} x "
+          f"{k2.BLOCKS_PER_SM}/SM):")
     for item_rows in (256, 512, 1024, 2048, 4096, 1 << 20):
         for bps in (4, 8, 16):
-            print(f"  R={item_rows} x {bps}/SM: {raw_ms(table_c, item_rows, bps):.4f} / "
-                  f"{raw_ms(table, item_rows, bps):.4f}", flush=True)
+            print(f"  R={item_rows} x {bps}/SM: {raw_ms(item_rows, bps):.4f}", flush=True)
     # the SM clock while the card ranks: launches queued, the clock read meanwhile
     for _ in range(3000):
         k2._launch(table, q_s, clm.model_sorted, T, k2.ITEM_ROWS, sms * k2.BLOCKS_PER_SM,
