@@ -353,3 +353,325 @@ def test_sequence_and_host_lum_equal_a_run_on_the_jax_spec(monkeypatch):
         for (tx, kx), (ty, ky) in zip(x.frames, y.frames):
             np.testing.assert_array_equal(tx, ty)
             assert kx == ky
+
+
+# ---------------------------------------------------------------------------
+# The chained loop's trip as one function, and its CUDA graph path's
+# control flow on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _unfactored_icp_pair_chained(model, mmask, target_local, tmask, T0, *, max_dist_match2,
+                                 epsilon, max_iterations, spec, minimizer="quat", check_every=4):
+    """``icp_pair_chained``'s loop written out step by step, as it stood
+    before its trip became one function: the reference of the factoring.
+    Returns the result and the loop trips."""
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+
+    align_fn = ticp.mz.get_minimizer(minimizer)
+    model = model.to(torch.float32).contiguous()
+    T = torch.as_tensor(T0, dtype=torch.float32)
+    max_dist = float(np.sqrt(max_dist_match2))
+    perm = tuple(spec["perm"])
+    clm, oob_m = ncl.build_cell_list_model(model, mmask, spec["origin"], max_dist,
+                                           dims=spec["dims"], perm=perm)
+    md2 = float(np.float32(max_dist_match2))
+    guard = torch.zeros((), dtype=torch.int32)
+    npairs = torch.zeros((), dtype=torch.float32)
+    big = torch.full((), float("inf"), dtype=torch.float64)
+    conv = (big, big, big, torch.zeros((), dtype=torch.bool), torch.zeros((), dtype=torch.int32))
+    trips = 0
+    for it in range(max_iterations):
+        tgt_g = ticp._chain_transform(T, target_local)
+        idx, _d2, found, oob_q = ncl.nn_cell_list_chained(
+            tgt_g, tmask, clm, md2, dims=spec["dims"], chunk=spec["chunk"], perm=perm)
+        trips += 1
+        T, conv, npairs = ticp._chain_update_conv(
+            model, idx, found, tgt_g, T, conv, float(epsilon), align_fn)
+        guard = torch.maximum(guard, oob_q + oob_m)
+        if (it + 1) % check_every == 0 or it == max_iterations - 1:
+            if int(guard) > 0 or bool(conv[3]):
+                break
+    res = ticp.IcpResult(T=T, error=float(conv[0]), iterations=int(conv[4]),
+                         n_pairs=float(npairs), maxocc=int(guard))
+    return res, trips
+
+
+def _plane(n, seed):
+    """n points of a noisy 400 x 400 cm plane, and the same points 15 cm
+    off: ICP slides there slowly (24 iterations at n = 2000)."""
+    rng = np.random.default_rng(seed)
+    world = np.zeros((n, 3), np.float32)
+    world[:, :2] = rng.uniform(0, 400, (n, 2))
+    world[:, 2] = rng.normal(0, 1.0, n)
+    return world, world - np.float32([14.0, 6.0, 0.5])
+
+
+def _assert_same_chained(a, b):
+    assert torch.equal(a.T, b.T)
+    assert (a.error, a.iterations, a.n_pairs, a.maxocc) == (b.error, b.iterations, b.n_pairs,
+                                                            b.maxocc)
+
+
+@pytest.mark.parametrize("stop", ["converged", "max_iterations", "guard"])
+def test_chained_trip_loop_equals_the_unfactored_loop(rng, stop):
+    """``icp_pair_chained`` on the CPU runs ``_chained_trip`` in the
+    host's polling loop: the same pose, error, iterations, pairs, guard
+    and loop trips as the unfactored loop.  Cases: a match that
+    converges; one stopped at ``max_iterations`` = 10, not a multiple of
+    the polling interval 4 (it would need ~24); one whose grid-box guard
+    fires (a target point 10^5 cm out)."""
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+    from tpu3dtk_torch.utils.metrics import CHAINED_GRAPH_REPLAYS
+
+    if stop == "max_iterations":
+        world, target = _plane(2000, 3)
+        T0 = np.eye(4, dtype=np.float32)
+    else:
+        world, target, T_true = _pair(rng)
+        T0 = np.asarray(T_true, np.float32) @ np.asarray(
+            jmath.euler_to_matrix4([1.5, -1.0, 0.5], [0.0, 0.0, 0.0]), np.float32)
+    if stop == "guard":
+        target = target.copy()
+        target[11] += 1e5
+    kw = dict(max_dist_match2=625.0, epsilon=1e-7,
+              max_iterations=10 if stop == "max_iterations" else 50)
+    args = (torch.as_tensor(world), torch.ones(len(world), dtype=torch.bool),
+            torch.as_tensor(target), torch.ones(len(target), dtype=torch.bool),
+            torch.as_tensor(T0))
+    spec = ncl.cell_list_spec(world, 25.0, device="cpu")
+    ref, ref_trips = _unfactored_icp_pair_chained(*args, spec=spec, **kw)
+    trips, reps = (metrics.counters[k].total for k in (ticp.CHAINED_TRIPS, CHAINED_GRAPH_REPLAYS))
+    got = ticp.icp_pair_chained(*args, spec=spec, **kw)
+    _assert_same_chained(got, ref)
+    assert metrics.counters[ticp.CHAINED_TRIPS].total == trips + ref_trips
+    assert metrics.counters[CHAINED_GRAPH_REPLAYS].total == reps  # the CPU runs eagerly
+    if stop == "converged":
+        assert got.maxocc == 0 and 2 < got.iterations < 50 and ref_trips % 4 == 0
+    elif stop == "max_iterations":
+        assert got.maxocc == 0 and got.iterations == ref_trips == 10
+    else:
+        assert got.maxocc > 0 and ref_trips == 4
+
+
+_CUDA = torch.device("cuda")  # a device name: no card needed
+
+
+@pytest.mark.parametrize("device,minimizer,graph", [
+    (_CUDA, "quat", True),
+    (_CUDA, "quatscale", True),
+    (_CUDA, "dual", True),
+    (torch.device("cpu"), "quat", False),
+    (_CUDA, "svd", False),
+    (_CUDA, "ortho", False),
+    (_CUDA, "helix", False),
+])
+def test_chained_graph_path_choice(device, minimizer, graph):
+    """The chained trip runs as a graph replay on a card only, and only
+    for a minimizer that reads nothing from the host."""
+    assert ticp._chained_graph_path(device, minimizer) is graph
+
+
+_KEY_CHANGES = {
+    "target_rows": lambda a: {**a, "target_local": a["target_local"][:-1]},
+    "model_rows": lambda a: {**a, "clm": a["clm"]._replace(points=a["clm"].points[:-1])},
+    "dims": lambda a: {**a, "dims": (a["dims"][0] + 1, *a["dims"][1:])},
+    "chunk": lambda a: {**a, "chunk": 128},
+    "perm": lambda a: {**a, "perm": (2, 0, 1)},
+    "cell": lambda a: {**a, "clm": a["clm"]._replace(cell=a["clm"].cell * 2)},
+    "md2": lambda a: {**a, "md2": 626.0},
+    "eps": lambda a: {**a, "eps": 1e-6},
+    "minimizer": lambda a: {**a, "minimizer": "dual"},
+}
+
+
+@pytest.mark.parametrize("change", sorted(_KEY_CHANGES))
+def test_chained_key_holds_what_the_graph_bakes_in(rng, change):
+    """The same inputs give the same key (built anew); each input a
+    captured trip bakes in gives a new one when it changes."""
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+
+    world, target, _ = _pair(rng)
+    spec = ncl.cell_list_spec(world, 25.0, device="cpu")
+    mask = torch.ones(len(world), dtype=torch.bool)
+
+    def inputs():
+        clm, _ = ncl.build_cell_list_model(torch.as_tensor(world), mask, spec["origin"], 25.0,
+                                           dims=spec["dims"], perm=spec["perm"])
+        return dict(clm=clm, target_local=torch.as_tensor(target), md2=625.0, eps=1e-7,
+                    minimizer="quat", dims=spec["dims"], chunk=spec["chunk"], perm=spec["perm"])
+
+    key = ticp._chained_key(**inputs())
+    assert ticp._chained_key(**inputs()) == key
+    assert ticp._chained_key(**_KEY_CHANGES[change](inputs())) != key
+
+
+def test_chained_and_brute_graph_caches_are_apart():
+    """The chained engine's captures live in a cache of their own: filling
+    either past its bound never evicts the other's entries."""
+    chained, brute = ticp._CHAINED_GRAPHS, ticp._GRAPHS
+    assert isinstance(chained, ticp.GraphCache) and chained is not brute
+    assert chained.entries is not brute.entries and chained.seen is not brute.seen
+    c, b = ticp.GraphCache(chained.cap), ticp.GraphCache(brute.cap)
+    b.put("brute", "an iteration")
+    for k in range(3 * c.cap):
+        c.put(("chained", k), "a trip")
+        assert c.recurs(("chained", k)) is False
+    assert list(b.entries) == ["brute"] and not b.seen
+    for k in range(3 * b.cap):
+        b.put(("brute", k), "an iteration")
+    assert list(c.entries) == [("chained", k) for k in range(2 * c.cap, 3 * c.cap)]
+
+
+def test_captured_calls_count_a_stand_in_kernel():
+    """``CapturedCalls`` keeps the count of the wrapper it is given: the
+    calls made while a graph is captured launch nothing and count 0; each
+    replay counts them once."""
+    from tpu3dtk_torch.ops import nn_cuda
+    from tpu3dtk_torch.ops.nn_cell_list_cuda import cell_list_rows_kernel
+
+    def k2():
+        k2.launches += 1
+
+    k2.launches = 7
+    k1_before, k2_before = nn_cuda.nn_brute_kernel.launches, cell_list_rows_kernel.launches
+    with nn_cuda.CapturedCalls(k2) as calls:
+        k2()
+        k2()
+    assert k2.launches == 7 and calls.calls == 2
+    for n in (9, 11, 13):
+        calls.replayed()
+        assert k2.launches == n
+    assert nn_cuda.nn_brute_kernel.launches == k1_before
+    assert cell_list_rows_kernel.launches == k2_before
+
+
+class _FakeTrip(ticp._CapturedTrip):
+    """A captured trip without a card: the recorded trip (the trip on the
+    static tensors and the copies into the static state) runs eagerly at
+    each replay, which is what the graph replays."""
+
+    made = []
+
+    def _capture(self, kernel, record):
+        import weakref
+
+        self.record = record
+        _FakeTrip.made.append(weakref.ref(self))
+
+    @classmethod
+    def first(cls, trip, clm, oob_m, target_local, tmask, state):
+        return cls(trip, clm, oob_m, target_local, tmask,
+                   trip(clm, oob_m, target_local, tmask, state))
+
+    def replay(self):
+        self.record()
+
+
+def test_chained_graph_cache_with_a_fake_capture(rng, monkeypatch):
+    """The chained graph path's control flow on the CPU, a fake capture
+    in the graph's place: a key's first match runs eagerly, its second
+    captures (its first trip eager), a later one loads the capture and
+    replays every trip; past the cache's bound the least recently used
+    capture goes.  Every match equals the eager one, trips and replays
+    are counted."""
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+    from tpu3dtk_torch.utils.metrics import CHAINED_GRAPH_REPLAYS
+
+    import gc
+
+    world, target, T_true = _pair(rng)
+    spec = ncl.cell_list_spec(world, 25.0, device="cpu")
+    T1 = np.asarray(T_true, np.float32) @ np.asarray(
+        jmath.euler_to_matrix4([1.5, -1.0, 0.5], [0.0, 0.01, 0.0]), np.float32)
+    rows = {"a": 5000, "b": 4000, "c": 3000}
+    kw = dict(max_dist_match2=625.0, epsilon=1e-7, max_iterations=50, spec=spec)
+
+    def match(name, T):
+        r = rows[name]
+        return ticp.icp_pair_chained(
+            torch.as_tensor(world), torch.ones(len(world), dtype=torch.bool),
+            torch.as_tensor(target[:r]), torch.ones(r, dtype=torch.bool), torch.as_tensor(T),
+            **kw)
+
+    # (key, start, how its trips run, captures made, keys cached)
+    plan = [
+        ("a", T1, "eager", 0, ""), ("a", np.eye(4, dtype=np.float32), "capture", 1, "a"),
+        ("a", T1, "replay", 1, "a"), ("b", T1, "eager", 1, "a"), ("b", T1, "capture", 2, "ab"),
+        ("c", T1, "eager", 2, "ab"), ("c", T1, "capture", 3, "bc"), ("b", T1, "replay", 3, "cb"),
+    ]
+    eager, trips = [], []
+    for name, T, *_ in plan:
+        before = metrics.counters[ticp.CHAINED_TRIPS].total
+        eager.append(match(name, T))
+        trips.append(metrics.counters[ticp.CHAINED_TRIPS].total - before)
+
+    cache = ticp.GraphCache(2)
+    monkeypatch.setattr(ticp, "_CHAINED_GRAPHS", cache)
+    monkeypatch.setattr(ticp, "_chained_graph_path", lambda *a: True)
+    monkeypatch.setattr(ticp, "_CapturedTrip", _FakeTrip)
+    monkeypatch.setattr(_FakeTrip, "made", [])
+    for (name, T, how, n_made, cached), ref, n_trips in zip(plan, eager, trips):
+        before, reps = (metrics.counters[k].total for k in (ticp.CHAINED_TRIPS,
+                                                             CHAINED_GRAPH_REPLAYS))
+        got = match(name, T)
+        _assert_same_chained(got, ref)
+        assert len(_FakeTrip.made) == n_made
+        assert [k[1] for k in cache.entries] == [rows[c] for c in cached]
+        assert metrics.counters[ticp.CHAINED_TRIPS].total == before + n_trips
+        replayed = {"eager": 0, "capture": n_trips - 1, "replay": n_trips}[how]
+        assert metrics.counters[CHAINED_GRAPH_REPLAYS].total == reps + replayed
+        # the result's pose is not the static pose the next match loads
+        assert all(got.T is not e.state.T for e in cache.entries.values())
+    gc.collect()  # the fake keeps its recorded trip, which refers back to it
+    assert _FakeTrip.made[0]() is None  # "a" dropped, and freed with its static tensors
+
+
+def test_chained_trip_reads_nothing_from_the_host(rng, monkeypatch):
+    """What a CUDA graph can hold: the chained trip makes no scalar read,
+    no copy to host data and builds no tensor from host data.  K2 is a
+    stand-in here (on a card it is one C call; its plain version reads
+    the ranges' lengths to size its tiles); on the CPU a ``.tolist()``,
+    ``.numpy()`` or ``.cpu()`` dispatches nothing, so those, and the reads
+    behind a Python ``bool``, ``int`` or ``float`` of a tensor, raise."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpu3dtk_torch.ops import nn_cell_list as ncl
+
+    world, target, T_true = _pair(rng)
+    spec = ncl.cell_list_spec(world, 25.0, device="cpu")
+    mask = torch.ones(len(world), dtype=torch.bool)
+    clm, oob_m = ncl.build_cell_list_model(torch.as_tensor(world), mask, spec["origin"], 25.0,
+                                           dims=spec["dims"], perm=spec["perm"])
+    state = ticp._ChainState.start(torch.as_tensor(np.asarray(T_true, np.float32)))
+    target = torch.as_tensor(target)
+
+    def k2(table, q_sorted, model_sorted, chunk):
+        return (torch.zeros(q_sorted.shape[0], dtype=torch.int32),
+                torch.zeros(q_sorted.shape[0], dtype=torch.float32))
+
+    monkeypatch.setattr(ncl, "cell_list_rows_auto", k2)
+
+    def host_read(*a, **k):
+        raise AssertionError("a host read inside the chained trip")
+
+    for name in ("tolist", "numpy", "cpu", "item", "__bool__", "__int__", "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, host_read)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as ops:
+        out = ticp._chained_trip(
+            clm, oob_m, target, mask, state, md2=625.0, eps=1e-7,
+            align_fn=ticp.mz.align_quat, dims=spec["dims"], chunk=spec["chunk"],
+            perm=spec["perm"])
+    assert len(ops.names) > 50 and isinstance(out, ticp._ChainState)
+    assert [x.dtype for x in out] == [x.dtype for x in state]
+    assert not [n for n in ops.names if n in ("aten::_local_scalar_dense", "aten::lift_fresh")]

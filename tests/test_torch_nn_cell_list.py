@@ -543,3 +543,12 @@ def test_jax_cell_list_state_carries_over(rng):
     b = ncl.nn_cell_list_chained(_t(q), _t(qmask), tclm, 625.0, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("perm", [(0, 1, 2), (2, 0, 1), (1, 2, 0)])
+def test_permute_axes_equals_list_indexing(rng, perm):
+    """The plan and the build permute the axes with column views stacked,
+    which a CUDA graph can hold: the same tensor as indexing by the list."""
+    pts = torch.as_tensor(rng.normal(0, 100, (257, 3)).astype(np.float32))
+    got = ncl._permute_axes(pts, perm)
+    assert torch.equal(got, pts[:, list(perm)]) and got.is_contiguous()

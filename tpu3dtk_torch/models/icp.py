@@ -33,7 +33,14 @@ bit for bit.
 :func:`icp_pair_chained` is the second engine, for large models:
 nearest neighbours through the cell-list chain (kernel K2,
 ``ops.nn_cell_list``), the stop tests evaluated on the device and read
-back every fourth iteration.  Pairing semantics match
+back every fourth loop trip.  A trip is one function,
+:func:`_chained_trip`, with no host read inside.  On a card, for a
+minimizer of ``CHAINED_GRAPH_SAFE``, a match key (shapes, grid, cell
+edge, radius, epsilon) met a second time has its first trip run once and
+captured as a CUDA graph; every later trip of that key is one replay
+(a cache of its own, apart from the brute engine's).  Everywhere else,
+and in a key's first match, each trip runs eagerly.  Both give the same
+poses bit for bit.  Pairing semantics match
 ``SearchTree::getPtPairs`` (src/slam6d/searchTree.cc:91-188): model
 points in the model's current global frame, target points in the
 target's current estimate, matches at or beyond max_dist_match2
@@ -50,11 +57,13 @@ import torch
 
 from ..core import math3d
 from ..ops import nn as nn_ops
-from ..utils.metrics import BRUTE_ICP_ITERATIONS, ICP_GRAPH_REPLAYS, metrics
+from ..utils.metrics import (
+    BRUTE_ICP_ITERATIONS, CHAINED_GRAPH_REPLAYS, ICP_GRAPH_REPLAYS, metrics,
+)
 from . import minimizers as mz
 
 __all__ = [
-    "GRAPH_SAFE", "GraphCache", "IcpParams", "IcpResult", "icp_pair",
+    "CHAINED_GRAPH_SAFE", "GRAPH_SAFE", "GraphCache", "IcpParams", "IcpResult", "icp_pair",
     "icp_pair_chained", "icp_pair_seq", "icp_window_align",
     "register_sequence_device",
 ]
@@ -70,6 +79,9 @@ CHAINED_TRIPS = "chained_icp_loop_trips"
 GRAPH_SAFE = frozenset(
     (m, p) for m in ("quat", "quatscale", "dual") for p in ("closest_point", "closest_plane")
 )
+# minimizers whose chained loop trip a CUDA graph can hold: those of
+# GRAPH_SAFE (the chained engine pairs closest points)
+CHAINED_GRAPH_SAFE = frozenset(m for m, p in GRAPH_SAFE if p == "closest_point")
 
 # pose-fixpoint thresholds of the JAX package (f32 values): an increment
 # below 100 um / ~1e-5 rad is the f32 stats-noise floor
@@ -278,7 +290,46 @@ def _graph_path(device, subsample: int, group, minimizer: str, pairing: str) -> 
     )
 
 
-class _CapturedIteration:
+class _Captured:
+    """A loop step captured as a CUDA graph, and the calls of a kernel
+    wrapper in it (``ops.nn_cuda.CapturedCalls``)."""
+
+    def _capture(self, kernel, record) -> None:
+        """Record ``record()`` into a new graph; ``kernel``'s calls in it
+        count once for each replay."""
+        from ..ops import nn_cuda
+
+        self.graph = torch.cuda.CUDAGraph()
+        # capture_begin directly: torch.cuda.graph would also synchronize,
+        # collect garbage and empty the allocator's cache at every capture.
+        # Thread-local: other threads keep the card meanwhile (streaming's
+        # prefetch workers reduce scans there, with syncs and allocations)
+        with nn_cuda.CapturedCalls(kernel) as self.calls:
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                record()
+            finally:
+                self.graph.capture_end()
+
+    def _replay(self, device) -> None:
+        with torch.cuda.device(device):  # the current stream of the graph's card
+            self.graph.replay()
+        self.calls.replayed()
+
+
+def _on_side_stream(device, fn):
+    """``fn()`` on a new stream ordered after the current one, which then
+    waits for it: a capture's warm-up run and the capture itself."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    return out
+
+
+class _CapturedIteration(_Captured):
     """One ICP iteration of one match shape as a CUDA graph: static copies
     of the match's inputs, the pose ``T`` that each replay advances, and
     the stop scalars each replay writes.  Built on a side stream, after
@@ -292,18 +343,12 @@ class _CapturedIteration:
         self.tmask = tmask.clone()
         self.T = T.clone()
         self.normals = None if normals is None else normals.clone()
-        self.graph = torch.cuda.CUDAGraph()
-        # capture_begin directly: torch.cuda.graph would also synchronize,
-        # collect garbage and empty the allocator's cache at every capture.
-        # Thread-local: other threads keep the card meanwhile (streaming's
-        # prefetch workers reduce scans there, with syncs and allocations)
-        with nn_cuda.CapturedCalls() as self.k1:
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                T_next, self.stop = step(self.bm, self.target, self.tmask, self.T, self.normals)
-                self.T.copy_(T_next)
-            finally:
-                self.graph.capture_end()
+
+        def record():
+            T_next, self.stop = step(self.bm, self.target, self.tmask, self.T, self.normals)
+            self.T.copy_(T_next)
+
+        self._capture(nn_cuda.nn_brute_kernel, record)
 
     @classmethod
     def first(cls, step, bm, target_local, tmask, T, normals):
@@ -311,14 +356,12 @@ class _CapturedIteration:
         side stream (the warm-up a capture needs), then captured there.  Returns the
         pose after it, its stop scalars and the captured iteration, whose
         static pose holds that pose."""
-        cur = torch.cuda.current_stream(T.device)
-        side = torch.cuda.Stream(T.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            T, stop = step(bm, target_local, tmask, T, normals)
-            captured = cls(step, bm, target_local, tmask, T, normals)
-        cur.wait_stream(side)
-        return T, stop, captured
+
+        def run():
+            T1, stop = step(bm, target_local, tmask, T, normals)
+            return T1, stop, cls(step, bm, target_local, tmask, T1, normals)
+
+        return _on_side_stream(T.device, run)
 
     def load(self, bm, target_local, tmask, T, normals):
         """Copy a new match's inputs into the static tensors."""
@@ -332,9 +375,7 @@ class _CapturedIteration:
 
     def replay(self):
         """Run the iteration once; returns its stop scalars (static)."""
-        with torch.cuda.device(self.T.device):  # the current stream of the graph's card
-            self.graph.replay()
-        self.k1.replayed()
+        self._replay(self.T.device)
         return self.stop
 
 
@@ -499,6 +540,128 @@ def _chain_update_conv(model, idx, found, tgt_global, T, conv, eps, align_fn):
     return T_new, (err, err_prev, prev, done_new, n_new), stats.n
 
 
+class _ChainState(NamedTuple):
+    """The chained loop's state, on the device: what one trip reads and
+    writes."""
+
+    T: torch.Tensor       # [4, 4] f32 pose of the target
+    err: torch.Tensor     # f64 RMS error of the last trip (inf before the first)
+    prev: torch.Tensor    # f64 the error of the trip before
+    prev2: torch.Tensor   # f64 the error two trips before
+    done: torch.Tensor    # bool: converged, or too few pairs; the pose is frozen
+    n_it: torch.Tensor    # int32 iterations counted (trips before done)
+    guard: torch.Tensor   # int32 largest box-exit count of model + query so far
+    npairs: torch.Tensor  # f32 pairs of the last trip
+
+    @classmethod
+    def start(cls, T):
+        dev = T.device
+        big = torch.full((), float("inf"), dtype=torch.float64, device=dev)
+        return cls(
+            T, big, big, big,
+            torch.zeros((), dtype=torch.bool, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.float32, device=dev),
+        )
+
+
+def _chained_trip(clm, oob_m, target_local, tmask, s: _ChainState, *,
+                  md2: float, eps: float, align_fn, dims, chunk: int, perm) -> _ChainState:
+    """One trip of the chained loop on the device: the transform, the
+    cell-list chain (query plan, K2, post), the update with its on-device
+    stop state and the exactness guard.  ``clm``, ``oob_m``: the match's
+    cell-list model and its box-exit count.  No host read and no
+    host-built tensor: on a card a CUDA graph can hold it for the
+    minimizers of ``CHAINED_GRAPH_SAFE``."""
+    from ..ops import nn_cell_list as ncl
+
+    tgt_g = _chain_transform(s.T, target_local)
+    idx, _d2, found, oob_q = ncl.nn_cell_list_chained(
+        tgt_g, tmask, clm, md2, dims=dims, chunk=chunk, perm=perm,
+    )
+    T, conv, npairs = _chain_update_conv(
+        clm.points, idx, found, tgt_g, s.T, s[1:6], eps, align_fn
+    )
+    return _ChainState(T, *conv, torch.maximum(s.guard, oob_q + oob_m), npairs)
+
+
+def _chained_graph_path(device, minimizer: str) -> bool:
+    """Whether a chained match's trips run as CUDA graph replays: on a
+    card, with a minimizer of ``CHAINED_GRAPH_SAFE``."""
+    return torch.device(device).type == "cuda" and minimizer in CHAINED_GRAPH_SAFE
+
+
+def _chained_key(clm, target_local, md2: float, eps: float, minimizer: str,
+                 dims, chunk: int, perm) -> tuple:
+    """What a captured trip bakes in: the card, the target's and the
+    model's rows, the grid (``dims``, and with it the size of
+    ``cell_start``), the query chunk, the axis order, the cell edge, the
+    match radius, epsilon and the minimizer."""
+    return (
+        clm.points.device, target_local.shape[0], clm.points.shape[0], tuple(dims),
+        int(chunk), tuple(perm), clm.cell, md2, eps, minimizer,
+    )
+
+
+class _CapturedTrip(_Captured):
+    """One chained loop trip of one match key as a CUDA graph: static
+    copies of the match's inputs (the cell-list model, its box-exit
+    count, the target and its mask) and the loop state that each replay
+    advances in place.  Built on a side stream, after the trip ran there
+    once (K2's library is loaded, cuBLAS set up)."""
+
+    def __init__(self, trip, clm, oob_m, target_local, tmask, state: _ChainState):
+        from ..ops import nn_cell_list_cuda
+
+        self.clm = type(clm)(*(x.clone() if isinstance(x, torch.Tensor) else x for x in clm))
+        self.oob_m = oob_m.clone()
+        self.target = target_local.clone()
+        self.tmask = tmask.clone()
+        self.state = _ChainState(*(x.clone() for x in state))
+
+        def record():
+            new = trip(self.clm, self.oob_m, self.target, self.tmask, self.state)
+            # the convergence state shifts err -> prev -> prev2: an output
+            # that is a state tensor itself is read before it is written
+            new = [x.clone() if any(x is y for y in self.state) else x for x in new]
+            for dst, src in zip(self.state, new):
+                dst.copy_(src)
+
+        self._capture(nn_cell_list_cuda.cell_list_rows_kernel, record)
+
+    @classmethod
+    def first(cls, trip, clm, oob_m, target_local, tmask, state: _ChainState):
+        """The first trip of a key's second match: run once on a side
+        stream, then captured there.  The captured trip's static state
+        holds the state after that first trip."""
+        return _on_side_stream(state.T.device, lambda: cls(
+            trip, clm, oob_m, target_local, tmask,
+            trip(clm, oob_m, target_local, tmask, state),
+        ))
+
+    def load(self, clm, oob_m, target_local, tmask, state: _ChainState) -> None:
+        """Copy a new match's inputs and starting state into the static
+        tensors."""
+        for dst, src in zip(self.clm, clm):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        self.oob_m.copy_(oob_m)
+        self.target.copy_(target_local)
+        self.tmask.copy_(tmask)
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+
+    def replay(self) -> None:
+        """Run the trip once: the static state advances."""
+        self._replay(self.state.T.device)
+
+
+# a city run matches one key a spec (window 1, every scan padded to one
+# cap); metascan runs one a window size: 4 hold those of a few runs
+_CHAINED_GRAPHS = GraphCache(4)
+
+
 def icp_pair_chained(
     model, mmask, target_local, tmask, T0, *,
     max_dist_match2, epsilon,
@@ -510,12 +673,16 @@ def icp_pair_chained(
     """ICP for LARGE models through the cell-list chain (kernel K2) —
     the port of ``tpu3dtk/models/icp.py::icp_pair_chained``.
 
-    Each iteration is a chain of device ops (transform, device query
-    plan, cell-list kernel, pair statistics and update) with no host
-    read inside: the two-delta convergence test runs ON DEVICE every
-    iteration (the pose freezes once converged) and the host polls the
-    done flag only every ``check_every`` iterations, so the
-    per-iteration NN cost is O(Q · occupancy) instead of O(Q · M).
+    Each loop trip is :func:`_chained_trip`, a chain of device ops
+    (transform, device query plan, cell-list kernel, pair statistics and
+    update) with no host read inside: the two-delta convergence test
+    runs ON DEVICE every trip (the pose freezes once converged) and the
+    host polls the done flag and the guard only every ``check_every``
+    trips and after the last, so the per-iteration NN cost is
+    O(Q · occupancy) instead of O(Q · M).  On a card a trip runs eagerly
+    or as a replay of its CUDA graph (see the module docstring); the
+    host's reads, and so the trips, iterations and pose, are the same
+    either way.  The cell-list model is built once a match, eagerly.
 
     Exactness guard: the model's and each iteration's out-of-grid-box
     counts accumulate on the device; if a point left the box, the caller
@@ -546,41 +713,52 @@ def icp_pair_chained(
             max_iterations=max_iterations, minimizer=minimizer,
         )
     perm = tuple(spec.get("perm", (0, 1, 2)))
+    dims, chunk = tuple(spec["dims"]), spec.get("chunk", 256)
     clm, oob_m = ncl.build_cell_list_model(
-        model, mmask, spec["origin"], max_dist,
-        dims=spec["dims"], perm=perm,
+        model, mmask, spec["origin"], max_dist, dims=dims, perm=perm,
     )
     md2 = float(np.float32(max_dist_match2))
-    guard = torch.zeros((), dtype=torch.int32, device=dev)
-    npairs = torch.zeros((), dtype=torch.float32, device=dev)
-    big = torch.full((), float("inf"), dtype=torch.float64, device=dev)
-    conv = (
-        big, big, big,
-        torch.zeros((), dtype=torch.bool, device=dev),
-        torch.zeros((), dtype=torch.int32, device=dev),
-    )
     eps = float(epsilon)
+
+    def trip(clm, oob_m, target_local, tmask, s):
+        return _chained_trip(clm, oob_m, target_local, tmask, s, md2=md2, eps=eps,
+                             align_fn=align_fn, dims=dims, chunk=chunk, perm=perm)
+
+    s = _ChainState.start(T)
+    key = captured = None
+    if _chained_graph_path(dev, minimizer):
+        key = _chained_key(clm, target_local, md2, eps, minimizer, dims, chunk, perm)
+        captured = _CHAINED_GRAPHS.get(key)
+        if captured is not None:
+            captured.load(clm, oob_m, target_local, tmask, s)
+            s = captured.state
+        elif not _CHAINED_GRAPHS.recurs(key):
+            key = None  # a key's first match runs eagerly
+    replays = 0
     for it in range(max_iterations):
-        tgt_g = _chain_transform(T, target_local)
-        idx, _d2, found, oob_q = ncl.nn_cell_list_chained(
-            tgt_g, tmask, clm, md2, dims=spec["dims"],
-            chunk=spec.get("chunk", 256), perm=perm,
-        )
+        if captured is not None:
+            captured.replay()
+            replays += 1
+        elif key is not None:
+            captured = _CapturedTrip.first(trip, clm, oob_m, target_local, tmask, s)
+            _CHAINED_GRAPHS.put(key, captured)
+            s = captured.state
+        else:
+            s = trip(clm, oob_m, target_local, tmask, s)
         metrics.count(CHAINED_TRIPS)
-        T, conv, npairs = _chain_update_conv(
-            model, idx, found, tgt_g, T, conv, eps, align_fn
-        )
-        guard = torch.maximum(guard, oob_q + oob_m)
         if (it + 1) % check_every == 0 or it == max_iterations - 1:
-            # the one device->host read of these check_every iterations
-            done, guard_v = torch.stack([conv[3].to(torch.int32), guard]).tolist()
+            # the one device->host read of these check_every trips
+            done, guard_v = torch.stack([s.done.to(torch.int32), s.guard]).tolist()
             if guard_v > 0:
                 break  # exactness guard fired: caller redoes with brute
             if done:
                 break
     err, n_it, n, guard_v = torch.stack([
-        conv[0], conv[4].double(), npairs.double(), guard.double(),
+        s.err, s.n_it.double(), s.npairs.double(), s.guard.double(),
     ]).tolist()
+    metrics.count(CHAINED_GRAPH_REPLAYS, replays)
+    # the static pose is the next match's input
+    T = s.T.clone() if captured is not None else s.T
     return IcpResult(
         T=T, error=err, iterations=int(n_it), n_pairs=n, maxocc=int(guard_v)
     )

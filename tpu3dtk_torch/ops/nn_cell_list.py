@@ -198,6 +198,13 @@ class CellListModel(NamedTuple):
     cell: float                 # cell edge (an f32 value)
 
 
+def _permute_axes(pts, perm):
+    """``pts`` [N, 3] with its columns in the order ``perm``: column
+    views stacked, so no index tensor is built from host data (a CUDA
+    graph can hold it)."""
+    return torch.stack([pts[:, a] for a in perm], dim=1)
+
+
 def _dense_ids(pts, origin, cell, dims):
     """Dense cell id of each point and whether it lies outside the box.
     Divides by the cell edge in f32 (no reciprocal), as the JAX package
@@ -234,7 +241,7 @@ def build_cell_list_model(
     dev = model.device
     cell = float(np.float32(cell))
     origin = torch.as_tensor(origin, dtype=torch.float32, device=dev)
-    model_p = model[:, list(perm)]
+    model_p = _permute_axes(model, perm)
     ids, oob = _dense_ids(model_p, origin, cell, dims)
     ids = torch.where(mmask, ids, C)  # masked sorts last
     order = torch.argsort(ids, stable=True)
@@ -268,7 +275,7 @@ def cell_list_plan_device(query, qmask, clm: CellListModel, *, dims,
     N = query.shape[0]
     W = _cdiv(N, chunk)
     dev = query.device
-    query_p = query[:, list(perm)]
+    query_p = _permute_axes(query, perm)
     ids, oob = _dense_ids(query_p, clm.origin, clm.cell, dims)
     ids = torch.where(qmask, ids, C)
     order = torch.argsort(ids, stable=True)

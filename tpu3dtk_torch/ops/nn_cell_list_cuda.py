@@ -14,7 +14,8 @@ CUDA tensor; the plain PyTorch version is
 ``ops.nn_cell_list.cell_list_rows``, and
 ``ops.nn_cell_list.cell_list_rows_auto`` picks between the two by
 device.  ``cell_list_rows_kernel.launches`` counts the calls that
-launched.
+launched; a call recorded in a CUDA graph counts once for each replay
+of the graph (``ops.nn_cuda.CapturedCalls``).
 """
 
 from __future__ import annotations

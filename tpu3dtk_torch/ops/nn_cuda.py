@@ -145,20 +145,25 @@ nn_brute_kernel.launches = 0
 
 
 class CapturedCalls:
-    """K1 calls recorded in a CUDA graph: inside ``with`` the calls of a
-    capture launch nothing, so ``nn_brute_kernel.launches`` leaves them
-    out; :meth:`replayed` counts them once for a replay of the graph,
-    which launches them."""
+    """Calls of a kernel wrapper recorded in a CUDA graph: ``kernel`` is
+    the wrapper whose ``launches`` counts its calls (K1's
+    ``nn_brute_kernel``, K2's ``cell_list_rows_kernel``).  Inside
+    ``with`` the calls of a capture launch nothing, so ``launches``
+    leaves them out; :meth:`replayed` counts them once for a replay of
+    the graph, which launches them."""
 
     calls = 0
 
+    def __init__(self, kernel):
+        self.kernel = kernel
+
     def __enter__(self):
-        self._before = nn_brute_kernel.launches
+        self._before = self.kernel.launches
         return self
 
     def __exit__(self, *exc):
-        self.calls = nn_brute_kernel.launches - self._before
-        nn_brute_kernel.launches = self._before
+        self.calls = self.kernel.launches - self._before
+        self.kernel.launches = self._before
 
     def replayed(self) -> None:
-        nn_brute_kernel.launches += self.calls
+        self.kernel.launches += self.calls

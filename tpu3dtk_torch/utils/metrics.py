@@ -87,3 +87,7 @@ SCAN_LOAD = "read_scan_time"
 # iterations, and those that ran as a replay of a captured CUDA graph
 BRUTE_ICP_ITERATIONS = "brute_icp_iterations"
 ICP_GRAPH_REPLAYS = "icp_graph_replays"
+# counter of the chained ICP engine (``models.icp.icp_pair_chained``): its
+# loop trips that ran as a replay of a captured CUDA graph (the trips
+# themselves count under ``models.icp.CHAINED_TRIPS``)
+CHAINED_GRAPH_REPLAYS = "chained_graph_replays"
